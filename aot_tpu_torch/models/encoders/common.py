@@ -1,0 +1,37 @@
+"""Shared encoder building blocks (port of aot_tpu/models/encoders/common.py)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm with fixed statistics and affine parameters, frozen mode
+    only (reference: networks/layers/normalization.py:6-43). Four buffers —
+    weight, bias, running_mean, running_var — and no num_batches_tracked,
+    so the reference state dict loads strictly. Starts as the identity
+    (running_var = 1 - eps), as the reference does."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.full((features,), 1 - eps))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * scale
+        return x * scale[:, None, None] + shift[:, None, None]
+
+
+def conv_kaiming(in_dim: int, out_dim: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 bias: bool = False) -> nn.Conv2d:
+    """Encoder conv with 'same' padding (k-1)//2*dilation; its kaiming
+    (fan_out) init is applied by the model's init_weights."""
+    return nn.Conv2d(in_dim, out_dim, kernel_size, stride=stride,
+                     padding=(kernel_size - 1) // 2 * dilation,
+                     dilation=dilation, groups=groups, bias=bias)
