@@ -125,7 +125,8 @@ class VOSEngine:
         views = [{k: v[:, :n] for k, v in layer.items()} for layer in state.lt]
         if min(valid) == n:
             return views, n
-        return views, torch.tensor(valid, device=state.obj_nums.device)
+        return views, torch.tensor(valid, dtype=torch.int32,
+                                   device=state.obj_nums.device)
 
     def _st_views(self, state: S.EngineState):
         slot = S.st_oldest_slot(state.st_ptr, state.st_count, self.st_skip)
@@ -204,9 +205,21 @@ class VOSEngine:
     # --- memory update -------------------------------------------------------
     def _fuse_curr(self, state: S.EngineState, id_emb):
         """Fuse the mask's identity into the current frame's memory entries
-        (aot_engine.py:307-327): K kept, V fused."""
-        return [self.model.fuse_memory(idx, curr["k"], curr["v"], id_emb)
-                for idx, curr in enumerate(state.curr)]
+        (aot_engine.py:307-327 / deaot_engine.py:20-45). AOT: K kept, V
+        fused. DeAOT (its memory carries `id_v`): K and V kept, only the
+        identity branch fused, from the block's identity input (absent at
+        layer 0)."""
+        fused = []
+        for idx, curr in enumerate(state.curr):
+            if "id_v" in state.lt[idx]:
+                f = self.model.fuse_memory(idx, None, curr.get("id_v"),
+                                           id_emb)
+                fused.append({"k": curr["k"], "v": curr["v"],
+                              "id_v": f["id_v"]})
+            else:
+                fused.append(self.model.fuse_memory(idx, curr["k"],
+                                                    curr["v"], id_emb))
+        return fused
 
     def _write_lt(self, state: S.EngineState, fused, hw: int) -> None:
         """Write each group's entry into its LT slot, in place."""

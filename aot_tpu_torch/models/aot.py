@@ -1,5 +1,5 @@
-"""AOT model assembly (port of aot_tpu/models/aot.py:128-353; reference:
-networks/models/aot.py).
+"""AOT and DeAOT model assemblies (port of aot_tpu/models/aot.py;
+reference: networks/models/aot.py, deaot.py).
 
 The engine drives the model through these methods:
 
@@ -26,7 +26,7 @@ from torch import nn
 from aot_tpu_torch.models.decoders import FPNSegmentationHead
 from aot_tpu_torch.models.encoders import build_encoder
 from aot_tpu_torch.models.layers import seq_from_2d, seq_to_2d
-from aot_tpu_torch.models.lstt import LongShortTermTransformer
+from aot_tpu_torch.models.lstt import DualBranchGPM, LongShortTermTransformer
 from aot_tpu_torch.ops.position import sine_position_embedding_seq
 
 
@@ -44,12 +44,10 @@ class AOT(nn.Module):
         self.max_obj_num = max_obj_num
         self.encoder = build_encoder(encoder_name)
         self.encoder_projector = nn.Conv2d(encoder_dims[-1], emb_dim, 1)
-        self.LSTT = LongShortTermTransformer(
-            lstt_num, emb_dim, self_heads, att_heads,
-            intermediate_norm=decoder_intermediate, final_norm=True)
+        self.LSTT = self._make_lstt(lstt_num, emb_dim, self_heads, att_heads,
+                                    decoder_intermediate)
         self.decoder = FPNSegmentationHead(
-            in_dim=emb_dim * (lstt_num + 1) if decoder_intermediate
-            else emb_dim,
+            in_dim=self._decoder_indim(lstt_num, decoder_intermediate),
             out_dim=max_obj_num + 1,
             decode_intermediate_input=decoder_intermediate,
             hidden_dim=emb_dim, shortcut_dims=encoder_dims,
@@ -60,6 +58,19 @@ class AOT(nn.Module):
             max_obj_num + 1, emb_dim, ks, stride=16,
             padding=8 if align_corners else 0)
 
+    # --- hooks overridden by DeAOT ---
+    def _make_lstt(self, lstt_num, emb_dim, self_heads, att_heads,
+                   decoder_intermediate) -> nn.Module:
+        return LongShortTermTransformer(
+            lstt_num, emb_dim, self_heads, att_heads,
+            intermediate_norm=decoder_intermediate, final_norm=True)
+
+    def _decoder_indim(self, lstt_num: int, decoder_intermediate: bool):
+        return self.emb_dim * (lstt_num + 1 if decoder_intermediate else 1)
+
+    def _id_post(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
     def encode_image(self, img: torch.Tensor):
         """img: (B, 3, H, W) normalised. Returns 4 feature maps, the last
         projected to emb_dim (aot.py:81-84)."""
@@ -69,7 +80,7 @@ class AOT(nn.Module):
 
     def get_id_emb(self, one_hot: torch.Tensor) -> torch.Tensor:
         """one_hot: (B, M+1, H, W) -> (B, HW16, emb_dim) (aot.py:76-79)."""
-        return seq_from_2d(self.patch_wise_id_bank(one_hot))
+        return self._id_post(seq_from_2d(self.patch_wise_id_bank(one_hot)))
 
     def get_id_emb_label(self, label: torch.Tensor) -> torch.Tensor:
         """Identity embedding of an int label map (B, H, W)."""
@@ -101,6 +112,29 @@ class AOT(nn.Module):
     def fuse_memory(self, layer_idx: int, key, value, id_emb):
         """Fuse a mask's identity embedding into the stored memory."""
         return self.LSTT.fuse_key_value_id(layer_idx, key, value, id_emb)
+
+
+class DeAOT(AOT):
+    """reference: networks/models/deaot.py:8-55 (aot_tpu/models/aot.py:295):
+    the dual-branch GPM stack, a decoder over its 2*emb_dim streams, and a
+    LayerNorm on the identity embedding."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.id_norm = nn.LayerNorm(self.emb_dim)
+
+    def _make_lstt(self, lstt_num, emb_dim, self_heads, att_heads,
+                   decoder_intermediate) -> nn.Module:
+        return DualBranchGPM(lstt_num, emb_dim, self_heads, att_heads,
+                             intermediate_norm=decoder_intermediate,
+                             final_norm=True)
+
+    def _decoder_indim(self, lstt_num: int, decoder_intermediate: bool):
+        return self.emb_dim * (lstt_num * 2 + 1 if decoder_intermediate
+                               else 2)
+
+    def _id_post(self, x: torch.Tensor) -> torch.Tensor:
+        return self.id_norm(x)
 
 
 # --- seeded initialisation ---------------------------------------------------
@@ -159,7 +193,7 @@ def init_weights(model: AOT, generator: torch.Generator) -> None:
         elif name.startswith("encoder."):                 # fan-out
             _kaiming_(mod.weight, mod.weight.shape[0] * mod.weight[0, 0].numel(),
                       g)
-        elif name.endswith("activation.conv"):            # fan-in
+        elif name.endswith(("activation.conv", "dw_conv.conv")):  # fan-in
             _kaiming_(mod.weight, mod.weight[0].numel(), g)
         elif name.endswith("relative_emb_k"):
             d = mod.weight.shape[1]
@@ -179,19 +213,20 @@ def init_weights(model: AOT, generator: torch.Generator) -> None:
 
 def build_vos_model(cfg, device="cpu",
                     generator: Optional[torch.Generator] = None) -> AOT:
-    """Construct the eval model from a Config (aot.py:328-353): AOT with the
-    MobileNetV2 encoder, fp32, weights drawn from `generator` (seed 0 when
-    None), on `device`, in eval mode with gradients off (the port serves
-    inference only)."""
-    if cfg.MODEL_VOS != "aot":
+    """Construct the eval model from a Config (aot.py:328-353): AOT or DeAOT
+    (`MODEL_VOS`) with the MobileNetV2 encoder, fp32, weights drawn from
+    `generator` (seed 0 when None), on `device`, in eval mode with gradients
+    off (the port serves inference only)."""
+    classes = {"aot": AOT, "deaot": DeAOT}
+    if cfg.MODEL_VOS not in classes:
         raise NotImplementedError(
-            f"MODEL_VOS={cfg.MODEL_VOS!r} is not ported yet; aot_tpu_torch "
-            "serves AOT only (ROADMAP.md, Queue 1: DeAOT)")
+            f"MODEL_VOS={cfg.MODEL_VOS!r}: aot_tpu_torch serves "
+            f"{sorted(classes)}")
     if str(cfg.TEST_DTYPE) != "float32":
         raise NotImplementedError(
             f"TEST_DTYPE={cfg.TEST_DTYPE!r}: aot_tpu_torch serves float32 "
             "only (ROADMAP.md, Queue 1: bf16 serving)")
-    model = AOT(
+    model = classes[cfg.MODEL_VOS](
         encoder_name=cfg.MODEL_ENCODER,
         encoder_dims=tuple(cfg.MODEL_ENCODER_DIM),
         emb_dim=cfg.MODEL_ENCODER_EMBEDDING_DIM,

@@ -52,6 +52,20 @@ class GNActDWConv2d(nn.Module):
         return seq_from_2d(self.conv(seq_to_2d(x, size_2d)))
 
 
+class DWConv2d(nn.Module):
+    """5x5 depthwise conv on a (B, HW, C) sequence, no bias (reference:
+    basic.py:38-57; its channel dropout is an identity at eval). DeAOT's
+    gated propagations apply it on every step."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.conv = nn.Conv2d(features, features, 5, padding=2,
+                              groups=features, bias=False)
+
+    def forward(self, x: torch.Tensor, size_2d) -> torch.Tensor:
+        return seq_from_2d(self.conv(seq_to_2d(x, size_2d)))
+
+
 class ConvGN(nn.Module):
     """Conv + GroupNorm(8) used by the FPN decoder (reference:
     basic.py:75-85). NCHW."""
@@ -125,3 +139,86 @@ class MultiheadLocalAttention(nn.Module):
             size_2d=size_2d, max_dis=self.max_dis, dilation=self.dilation,
             d_att=self.d_att)
         return self.projection(out)
+
+
+class GatedPropagation(nn.Module):
+    """DeAOT gated propagation: softmax attention over a 2x value stream,
+    elementwise U-gate, depthwise conv, projection (reference:
+    attention.py:589-717; aot_tpu/models/layers.py:288)."""
+
+    def __init__(self, d_qk: int, d_vu: int, num_heads: int = 8,
+                 d_att: Optional[int] = None, use_linear: bool = True,
+                 expand_ratio: float = 2.0):
+        super().__init__()
+        h = num_heads
+        self.num_heads = h
+        self.d_att = d_att if d_att is not None else d_qk // h
+        self.expand_d_vu = int(d_vu * expand_ratio)
+        self.hidden = self.expand_d_vu // h
+        self.use_linear = use_linear
+        if use_linear:
+            half = d_vu // 2
+            self.linear_QK = nn.Linear(d_qk, self.d_att * h)
+            self.linear_V1 = nn.Linear(half, self.hidden * h // 2)
+            self.linear_V2 = nn.Linear(d_vu - half, self.hidden * h // 2)
+            self.linear_U1 = nn.Linear(half, self.hidden * h // 2)
+            self.linear_U2 = nn.Linear(d_vu - half, self.hidden * h // 2)
+        self.dw_conv = DWConv2d(self.expand_d_vu)
+        self.projection = nn.Linear(self.expand_d_vu, d_vu)
+
+    def _cat_halves(self, x1, x2):
+        """Interleave two half-width projections head by head."""
+        if self.num_heads > 1:
+            b, n, _ = x1.shape
+            x1 = x1.reshape(b, n, self.num_heads, self.hidden // 2)
+            x2 = x2.reshape(b, n, self.num_heads, self.hidden // 2)
+            return torch.cat([x1, x2], dim=-1).reshape(b, n, -1)
+        return torch.cat([x1, x2], dim=-1)
+
+    def forward(self, q, k, v, u, size_2d, *, valid_len=None,
+                top_k: int = -1,
+                max_mem_len_ratio: float = -1.0) -> torch.Tensor:
+        if self.use_linear:
+            q = k = self.linear_QK(q)
+            half = self.linear_V1.in_features
+            v = att_ops.silu(self._cat_halves(self.linear_V1(v[..., :half]),
+                                              self.linear_V2(v[..., half:])))
+            u = att_ops.silu(self._cat_halves(self.linear_U1(u[..., :half]),
+                                              self.linear_U2(u[..., half:])))
+        out = att_ops.gated_global_attention(
+            q, k, v, self.num_heads, self.d_att, valid_len=valid_len,
+            top_k=top_k, max_mem_len_ratio=max_mem_len_ratio)
+        return self.projection(self.dw_conv(out * u, size_2d))
+
+
+class LocalGatedPropagation(nn.Module):
+    """DeAOT local gated propagation, without projections of its own
+    (use_linear=False, the only form DeAOT builds) and without a relative
+    value bias (reference: attention.py:720-914;
+    aot_tpu/models/layers.py:339)."""
+
+    def __init__(self, d_qk: int, d_vu: int, num_heads: int,
+                 d_att: Optional[int] = None, max_dis: int = 7,
+                 dilation: int = 1, expand_ratio: float = 2.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.d_att = d_att if d_att is not None else d_qk // num_heads
+        self.max_dis = max_dis
+        self.dilation = dilation
+        self.win2 = (2 * max_dis + 1) ** 2
+        expand_d_vu = int(d_vu * expand_ratio)
+        self.relative_emb_k = nn.Conv2d(self.d_att * num_heads,
+                                        num_heads * self.win2, 1,
+                                        groups=num_heads)
+        self.dw_conv = DWConv2d(expand_d_vu)
+        self.projection = nn.Linear(expand_d_vu, d_vu)
+
+    def forward(self, q, k, v, u, size_2d) -> torch.Tensor:
+        h = self.num_heads
+        rel_bias = att_ops.relative_emb_from_q(
+            q.float(), self.relative_emb_k.weight.view(h, self.win2, -1),
+            self.relative_emb_k.bias.view(h, self.win2), h)
+        out = att_ops.gated_local_attention(
+            q, k, v, rel_bias, num_heads=h, size_2d=size_2d,
+            max_dis=self.max_dis, dilation=self.dilation, d_att=self.d_att)
+        return self.projection(self.dw_conv(out * u, size_2d))

@@ -7,8 +7,10 @@ dilated local-window attention with relative key/value biases.
 Dispatch is by the tensor's device, not by a global backend flag: the local
 attention of a CUDA tensor runs the hand-written kernel
 (ops/kernels/local_window_attn.py), a CPU tensor its plain PyTorch version.
-Global attention stays plain PyTorch on both, as the JAX package leaves it
-to XLA at the served sizes.
+Global attention over a long live memory (`use_flash`) goes to the flash
+kernel (ops/kernels/flash_attn.py) on a CUDA tensor and to its plain
+version on a CPU tensor; below that it is plain PyTorch on both, as the JAX
+package leaves it to XLA.
 
 Layouts: sequences are (B, L, C).
 """
@@ -20,9 +22,15 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from aot_tpu_torch.ops.kernels import flash_attn as fa
 from aot_tpu_torch.ops.kernels import local_window_attn as lwa
 
 NEG_INF = -1e30
+
+# Keys handed to global_attention from which a live-length masked read goes
+# to the flash kernel: the JAX package's fp32 default
+# (aot_tpu/ops/attention.py:81).
+FLASH_MIN_KEYS = 8192
 
 # max score-tensor elements before queries are chunked (~256 MB fp32)
 _SCORE_BUDGET = 64 * 1024 * 1024
@@ -66,6 +74,16 @@ def _topk_filter(scores: torch.Tensor, top_k: int) -> torch.Tensor:
     return torch.where(scores >= kth, scores, torch.full_like(scores, NEG_INF))
 
 
+def use_flash(lk: int, valid_len, top_k: int,
+              max_mem_len_ratio: float) -> bool:
+    """The dispatch rule of aot_tpu/ops/attention.py:128 `_use_flash`: a
+    read of a live-length masked memory (`valid_len` given) of at least
+    FLASH_MIN_KEYS keys, with neither top-k filtering nor the memory-length
+    rescale (those stay on the dense path)."""
+    return (valid_len is not None and top_k <= 0 and max_mem_len_ratio <= 0
+            and lk >= FLASH_MIN_KEYS)
+
+
 def global_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -86,6 +104,9 @@ def global_attention(
     """
     b, lq, cq = q.shape
     lk = k.shape[1]
+    if use_flash(lk, valid_len, top_k, max_mem_len_ratio):
+        return fa.flash_attention(q, k, v, valid_len, num_heads,
+                                  d_att)[0].to(v.dtype)
     h = num_heads
     d = d_att if d_att is not None else cq // h
 
@@ -165,3 +186,32 @@ def local_attention(
     raise NotImplementedError(
         f"local attention on {q.device} at dilation {dilation}: the CUDA "
         "kernel serves dilation 1 only (see ROADMAP.md)")
+
+
+# --- gated propagation (DeAOT) ---------------------------------------------
+
+
+def gated_global_attention(q, k, v, num_heads: int, d_att: int, *,
+                           valid_len: ValidLen = None, top_k: int = -1,
+                           max_mem_len_ratio: float = -1.0) -> torch.Tensor:
+    """DeAOT's global gated propagation core: softmax attention over the 2x
+    value stream (aot_tpu/ops/attention.py:829). The U-gate, depthwise conv
+    and projection belong to the calling module."""
+    return global_attention(q, k, v, num_heads, d_att, valid_len=valid_len,
+                            top_k=top_k, max_mem_len_ratio=max_mem_len_ratio)
+
+
+def gated_local_attention(q, k, v, rel_bias, *, num_heads: int,
+                          size_2d: Tuple[int, int], max_dis: int = 7,
+                          dilation: int = 1,
+                          d_att: Optional[int] = None) -> torch.Tensor:
+    """DeAOT's local gated propagation core, with no relative value bias
+    (aot_tpu/ops/attention.py:850)."""
+    return local_attention(q, k, v, rel_bias, None, num_heads=num_heads,
+                           size_2d=size_2d, max_dis=max_dis,
+                           dilation=dilation, d_att=d_att)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) (aot_tpu/ops/attention.py:871)."""
+    return x * torch.sigmoid(x)

@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parents[2]          # aot_tpu_torch/
 CSRC = _PKG / "csrc"
@@ -39,27 +39,40 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu (if not built yet) and return the .so path."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOGS[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{BUILD_LOGS[name]}")
-    os.replace(tmp, out)
-    return out
+def build(*names: str) -> List[Path]:
+    """Compile csrc/<name>.cu for each name not built yet — one nvcc
+    process per source, all started together — and return the .so paths in
+    the order of `names`. Raises if any build fails."""
+    outs, jobs = [], []
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode())
+        out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+        outs.append(out)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, cmd, tmp, out, proc))
+    failed = []
+    for name, cmd, tmp, out, proc in jobs:
+        BUILD_LOGS[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{BUILD_LOGS[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built on first call."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
+        lib = _LIBS[name] = ctypes.CDLL(str(build(name)[0]))
     return lib

@@ -29,7 +29,10 @@ from aot_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30
 MAX_DIS = 7       # window of at most 15 x 15 slots
-MAX_CHANNELS = 512
+MAX_D = 512       # q/k channels per head, held in shared memory (kMaxD)
+MAX_DV = 1024     # value channels per head: the kernel loops over them, and
+                  # 1024 (DeAOT's 2 x 512 value stream at h=1) is the widest
+                  # the card has checked
 
 # Kernel launches since the count was last reset; the wrapper adds one per
 # launch and nothing else touches it, so a run can show it went through the
@@ -91,6 +94,18 @@ def local_window_attention_plain(
     return out.permute(0, 2, 1, 3).reshape(b, hw, h * dv).to(v.dtype)
 
 
+def shape_error(d: int, dv: int, max_dis: int) -> Optional[str]:
+    """Why the kernel does not take per-head widths (d, dv) and window
+    radius max_dis, or None."""
+    if not 0 <= max_dis <= MAX_DIS:
+        return f"max_dis={max_dis} (at most {MAX_DIS})"
+    if not 0 < d <= MAX_D:
+        return f"d={d} (at most {MAX_D})"
+    if not 0 < dv <= MAX_DV:
+        return f"dv={dv} (at most {MAX_DV})"
+    return None
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("local_window_attn")
     fn = lib.local_window_attn_fwd
@@ -135,12 +150,10 @@ def local_window_attention_cuda(
     d = d_att if d_att is not None else q.shape[-1] // h
     dv = v.shape[-1] // h
     win2 = (2 * max_dis + 1) ** 2
-    if not (0 <= max_dis <= MAX_DIS and 0 < d <= MAX_CHANNELS
-            and 0 < dv <= MAX_CHANNELS and v.shape[-1] == h * dv):
-        raise ValueError(
-            f"local_window_attention_cuda: unsupported max_dis={max_dis}, "
-            f"d={d}, dv={dv}, heads={h} (max_dis <= {MAX_DIS}, "
-            f"d, dv <= {MAX_CHANNELS})")
+    why = shape_error(d, dv, max_dis)
+    if why is not None or v.shape[-1] != h * dv:
+        raise ValueError(f"local_window_attention_cuda: unsupported "
+                         f"{why or ''} (heads={h}, v width {v.shape[-1]})")
     dev = q.device
     _check("q", q, (b, hw, h * d), dev)
     _check("k", k, (b, hw, h * d), dev)

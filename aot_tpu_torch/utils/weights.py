@@ -5,6 +5,27 @@ The port's module tree carries the reference PyTorch repo's module names,
 so a reference-keyed state dict — a reference checkpoint, or
 `aot_tpu.utils.torch_import.export_state_dict` of JAX parameters — loads
 as it is, with no converter.
+
+Keys a MobileNetV2 model holds, by module:
+  both      encoder.* (260: convs and FrozenBN weight, bias, running_mean,
+            running_var), encoder_projector.{weight,bias},
+            patch_wise_id_bank.{weight,bias}, decoder.* (24: conv_in,
+            conv_16x, conv_8x, conv_4x as .conv and .gn; adapter_16x,
+            adapter_8x, adapter_4x, conv_out)
+  AOT       LSTT.layers.{i}.* (32 a block: norm1-3, linear_Q, linear_V,
+            self_attn.linear_{Q,K,V}, self_attn.projection,
+            long_term_attn.projection, short_term_attn.relative_emb_k,
+            short_term_attn.relative_emb_v, short_term_attn.projection,
+            linear1, linear2, activation.gn, activation.conv),
+            LSTT.decoder_norms.{j} (LayerNorm). AOTT: 322 keys.
+  DeAOT     LSTT.layers.{i}.* (33 at block 0: norm1, norm2, id_norm2,
+            linear_QV, linear_U, linear_ID_V,
+            long_term_attn.{dw_conv.conv,projection},
+            short_term_attn.{relative_emb_k,dw_conv.conv,projection},
+            self_attn.linear_{QK,V1,V2,U1,U2},
+            self_attn.{dw_conv.conv,projection}; 37 at later blocks, which
+            add id_norm1 and linear_ID_U), LSTT.decoder_norms.{j}.gn
+            (GroupNorm(2)), id_norm. DeAOTL: 399 keys.
 """
 
 from __future__ import annotations
