@@ -4,9 +4,11 @@ aot_tpu/engine/engine.py; reference: networks/engines/aot_engine.py).
 The per-frame path is `propagate -> decode_logits -> update_memory`, with
 the memory in pre-allocated ring buffers. Two departures from the JAX
 package, both exact:
-  - ring writes are in place (slice assignment into the LT/ST buffers), so
-    a state is consumed by the call that takes it: the returned state
-    shares, and has updated, its buffers;
+  - serving writes the rings in place (slice assignment into the LT/ST
+    buffers), so a state is consumed by the call that takes it: the
+    returned state shares, and has updated, its buffers. A training engine
+    (`inplace_memory = False`, engine/train.py) writes into copies instead,
+    since autograd saved the buffers the last frame read;
   - the scalar counters are host ints, so a conditional LT write is a
     Python `if` instead of the per-buffer select that stood in for
     `lax.cond` on the TPU, and the global attention reads only the live
@@ -32,6 +34,8 @@ NEG_LOGIT = -1e10
 class VOSEngine:
     """Binds a model and the memory hyperparameters; stateless otherwise
     (besides per-device constants made once)."""
+
+    inplace_memory = True     # ring writes in place (serving)
 
     def __init__(self, model, max_obj_num: int, lt_gap: int = 9999,
                  st_skip: int = 1, lt_cap: int = 8, lt_policy: str = "fifo",
@@ -80,6 +84,14 @@ class VOSEngine:
                 layer[key][0] = val
             rings.append(layer)
         return rings
+
+    def _put(self, buf: torch.Tensor, index, val: torch.Tensor) -> torch.Tensor:
+        """buf with buf[index] = val: in place, or into a copy when the
+        engine keeps the memory out of place."""
+        if not self.inplace_memory:
+            buf = buf.clone()
+        buf[index] = val.to(buf.dtype)
+        return buf
 
     def _seed_state(self, mems, embs, shortcuts, obj_nums,
                     frame_step: int) -> S.EngineState:
@@ -143,26 +155,29 @@ class VOSEngine:
         frame_step: int = 0,
         *,
         id_emb: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> S.EngineState:
         """Seed (or extend, for mid-video new objects) the memory from a
-        ground-truth mask (B, H, W) int (reference: aot_engine.py:188-251)."""
+        ground-truth mask (B, H, W) int (reference: aot_engine.py:188-251).
+        `generator` drives the model's dropout (training only)."""
         xs = img_embs if img_embs is not None else self.encode_image(img)
         size_2d = tuple(xs[-1].shape[-2:])
         hw = size_2d[0] * size_2d[1]
         dev = xs[-1].device
         if id_emb is None:
-            id_emb = self.model.get_id_emb_label(mask)
+            id_emb = self.model.get_id_emb_label(mask, generator)
         embs, mems = self.model.lstt_forward(
-            xs[-1], None, None, id_emb, self._pos(size_2d, dev), size_2d)
+            xs[-1], None, None, id_emb, self._pos(size_2d, dev), size_2d,
+            generator=generator)
         obj_nums = torch.as_tensor(obj_nums, device=dev).reshape(-1).long()
 
         if state is None:
             return self._seed_state(mems, embs, xs, obj_nums, frame_step)
 
         # existing state: append LT, reset the ST ring to this frame
-        self._write_lt(state, [m["global"] for m in mems], hw)
         return dataclasses.replace(
-            state, lt_count=[c + 1 for c in state.lt_count],
+            state, lt=self._write_lt(state, [m["global"] for m in mems], hw),
+            lt_count=[c + 1 for c in state.lt_count],
             st=self._st_rings(mems),
             st_ptr=0, st_count=1, curr=[dict(m["curr"]) for m in mems],
             embs=list(embs), shortcuts=list(xs), frame_step=frame_step,
@@ -170,7 +185,8 @@ class VOSEngine:
 
     # --- per-frame propagation ---------------------------------------------
     def propagate(self, state: S.EngineState, img: Optional[torch.Tensor],
-                  img_embs: Optional[Sequence[torch.Tensor]] = None
+                  img_embs: Optional[Sequence[torch.Tensor]] = None, *,
+                  generator: Optional[torch.Generator] = None
                   ) -> S.EngineState:
         """Attend the new frame against memory (aot_engine.py:340-354)."""
         xs = img_embs if img_embs is not None else self.encode_image(img)
@@ -181,7 +197,7 @@ class VOSEngine:
             xs[-1], lt_mems, self._st_views(state), None,
             self._pos(size_2d, xs[-1].device), size_2d,
             lt_valid_len=lt_valid, top_k=self.top_k,
-            max_mem_len_ratio=self.max_mem_len_ratio)
+            max_mem_len_ratio=self.max_mem_len_ratio, generator=generator)
         return dataclasses.replace(
             state, curr=[dict(m["curr"]) for m in mems], embs=list(embs),
             shortcuts=list(xs), frame_step=state.frame_step + 1)
@@ -221,16 +237,28 @@ class VOSEngine:
                                                     curr["v"], id_emb))
         return fused
 
-    def _write_lt(self, state: S.EngineState, fused, hw: int) -> None:
-        """Write each group's entry into its LT slot, in place."""
+    def _write_lt(self, state: S.EngineState, fused, hw: int):
+        """Each group's entry written into its LT slot; returns the LT
+        rings (the same buffers when the engine writes in place)."""
         cap = self.lt_cap_of(state, hw)
         slots = [S.lt_write_slot(c, cap, self.lt_policy)
                  for c in state.lt_count]
+        rings = []
         for layer_lt, layer_f in zip(state.lt, fused):
+            layer = {}
             for key, buf in layer_lt.items():
-                val = layer_f[key].to(buf.dtype)
-                for b, s in enumerate(slots):
-                    buf[b, s * hw:(s + 1) * hw] = val[b]
+                val = layer_f[key]
+                if len(set(slots)) == 1:      # every group: the same slot
+                    s = slots[0]
+                    buf = self._put(buf, (slice(None), slice(s * hw, (s + 1) * hw)),
+                                    val)
+                else:
+                    for b, s in enumerate(slots):
+                        buf = self._put(buf, (b, slice(s * hw, (s + 1) * hw)),
+                                        val[b])
+                layer[key] = buf
+            rings.append(layer)
+        return rings
 
     def update_memory(
         self,
@@ -243,7 +271,8 @@ class VOSEngine:
     ) -> S.EngineState:
         """Write the current frame, with the identity of `mask` (B, H, W)
         int or `prob` (B, H, W, M+1), into the ST ring and, every lt_gap
-        frames, the LT ring (aot_engine.py:307-338). In place."""
+        frames, the LT ring (aot_engine.py:307-338); in place when
+        serving."""
         if id_emb is None:
             id_emb = (self.model.get_id_emb(prob.permute(0, 3, 1, 2))
                       if prob is not None
@@ -252,9 +281,9 @@ class VOSEngine:
         fused = self._fuse_curr(state, id_emb)
 
         ptr = (state.st_ptr + 1) % self.st_skip
-        for layer_st, layer_f in zip(state.st, fused):
-            for key, buf in layer_st.items():
-                buf[ptr] = layer_f[key].to(buf.dtype)
+        st = [{key: self._put(buf, ptr, layer_f[key])
+               for key, buf in layer_st.items()}
+              for layer_st, layer_f in zip(state.st, fused)]
 
         # the gap clock advances whenever the gap is reached, even when the
         # write itself is skipped (aot_engine.py:334-338)
@@ -262,10 +291,9 @@ class VOSEngine:
         do_lt = gap_hit and not skip_long_term_update
         if self.lt_policy == "stop":
             do_lt = do_lt and min(state.lt_count) < self.lt_cap_of(state, hw)
-        if do_lt:
-            self._write_lt(state, fused, hw)
+        lt = self._write_lt(state, fused, hw) if do_lt else state.lt
         return dataclasses.replace(
-            state, st_ptr=ptr,
+            state, lt=lt, st=st, st_ptr=ptr,
             st_count=min(state.st_count + 1, self.st_skip),
             lt_count=([c + 1 for c in state.lt_count] if do_lt
                       else state.lt_count),

@@ -25,7 +25,7 @@ from torch import nn
 
 from aot_tpu_torch.models.decoders import FPNSegmentationHead
 from aot_tpu_torch.models.encoders import build_encoder
-from aot_tpu_torch.models.layers import seq_from_2d, seq_to_2d
+from aot_tpu_torch.models.layers import dropout, seq_from_2d, seq_to_2d
 from aot_tpu_torch.models.lstt import DualBranchGPM, LongShortTermTransformer
 from aot_tpu_torch.ops.position import sine_position_embedding_seq
 
@@ -38,14 +38,19 @@ class AOT(nn.Module):
                  emb_dim: int = 256, max_obj_num: int = 10,
                  lstt_num: int = 1, self_heads: int = 8, att_heads: int = 8,
                  decoder_intermediate: bool = True,
-                 align_corners: bool = True):
+                 align_corners: bool = True, id_dropout: float = 0.0,
+                 **lstt_drop):
+        """lstt_drop: the LSTT stack's dropout and stochastic-depth rates
+        (emb_dropout, droppath, lt_dropout, st_dropout, droppath_lst,
+        droppath_scaling); they act only on a forward given a generator."""
         super().__init__()
         self.emb_dim = emb_dim
         self.max_obj_num = max_obj_num
+        self.id_dropout = id_dropout
         self.encoder = build_encoder(encoder_name)
         self.encoder_projector = nn.Conv2d(encoder_dims[-1], emb_dim, 1)
         self.LSTT = self._make_lstt(lstt_num, emb_dim, self_heads, att_heads,
-                                    decoder_intermediate)
+                                    decoder_intermediate, **lstt_drop)
         self.decoder = FPNSegmentationHead(
             in_dim=self._decoder_indim(lstt_num, decoder_intermediate),
             out_dim=max_obj_num + 1,
@@ -60,10 +65,11 @@ class AOT(nn.Module):
 
     # --- hooks overridden by DeAOT ---
     def _make_lstt(self, lstt_num, emb_dim, self_heads, att_heads,
-                   decoder_intermediate) -> nn.Module:
+                   decoder_intermediate, **lstt_drop) -> nn.Module:
         return LongShortTermTransformer(
             lstt_num, emb_dim, self_heads, att_heads,
-            intermediate_norm=decoder_intermediate, final_norm=True)
+            intermediate_norm=decoder_intermediate, final_norm=True,
+            **lstt_drop)
 
     def _decoder_indim(self, lstt_num: int, decoder_intermediate: bool):
         return self.emb_dim * (lstt_num + 1 if decoder_intermediate else 1)
@@ -78,14 +84,19 @@ class AOT(nn.Module):
         xs[-1] = self.encoder_projector(xs[-1])
         return xs
 
-    def get_id_emb(self, one_hot: torch.Tensor) -> torch.Tensor:
+    def get_id_emb(self, one_hot: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
         """one_hot: (B, M+1, H, W) -> (B, HW16, emb_dim) (aot.py:76-79)."""
-        return self._id_post(seq_from_2d(self.patch_wise_id_bank(one_hot)))
+        x = self._id_post(seq_from_2d(self.patch_wise_id_bank(one_hot)))
+        return dropout(x, self.id_dropout, generator)
 
-    def get_id_emb_label(self, label: torch.Tensor) -> torch.Tensor:
+    def get_id_emb_label(self, label: torch.Tensor,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
         """Identity embedding of an int label map (B, H, W)."""
         one_hot = F.one_hot(label.long(), self.max_obj_num + 1)
-        return self.get_id_emb(one_hot.permute(0, 3, 1, 2).float())
+        return self.get_id_emb(one_hot.permute(0, 3, 1, 2).float(), generator)
 
     def get_pos_emb(self, size_2d: Tuple[int, int], device) -> torch.Tensor:
         return sine_position_embedding_seq(size_2d[0], size_2d[1],
@@ -94,13 +105,14 @@ class AOT(nn.Module):
     def lstt_forward(self, emb16: torch.Tensor, lt_mems, st_mems,
                      curr_id_emb, pos_emb, size_2d: Tuple[int, int], *,
                      lt_valid_len=None, top_k: int = -1,
-                     max_mem_len_ratio: float = -1.0):
+                     max_mem_len_ratio: float = -1.0,
+                     generator: Optional[torch.Generator] = None):
         """emb16: (B, C, H16, W16) projected feature -> token sequence ->
         LSTT stack (aot.py:94-108)."""
         return self.LSTT(
             seq_from_2d(emb16), lt_mems, st_mems, curr_id_emb, pos_emb,
             size_2d, lt_valid_len=lt_valid_len, top_k=top_k,
-            max_mem_len_ratio=max_mem_len_ratio)
+            max_mem_len_ratio=max_mem_len_ratio, generator=generator)
 
     def decode_id_logits(self, lstt_intermediates, shortcuts) -> torch.Tensor:
         """(aot.py:86-92). Returns (B, M+1, H4, W4) fp32 logits."""
@@ -124,7 +136,8 @@ class DeAOT(AOT):
         self.id_norm = nn.LayerNorm(self.emb_dim)
 
     def _make_lstt(self, lstt_num, emb_dim, self_heads, att_heads,
-                   decoder_intermediate) -> nn.Module:
+                   decoder_intermediate, **lstt_drop) -> nn.Module:
+        del lstt_drop   # DeAOT training is not ported; serving has none
         return DualBranchGPM(lstt_num, emb_dim, self_heads, att_heads,
                              intermediate_norm=decoder_intermediate,
                              final_norm=True)
@@ -212,20 +225,45 @@ def init_weights(model: AOT, generator: torch.Generator) -> None:
 
 
 def build_vos_model(cfg, device="cpu",
-                    generator: Optional[torch.Generator] = None) -> AOT:
-    """Construct the eval model from a Config (aot.py:328-353): AOT or DeAOT
+                    generator: Optional[torch.Generator] = None, *,
+                    train: bool = False) -> AOT:
+    """Construct the model from a Config (aot.py:328-353): AOT or DeAOT
     (`MODEL_VOS`) with the MobileNetV2 encoder, fp32, weights drawn from
-    `generator` (seed 0 when None), on `device`, in eval mode with gradients
-    off (the port serves inference only)."""
+    `generator` (seed 0 when None), on `device`.
+
+    train=False: the serving model, in eval mode with gradients off.
+    train=True: the trainable AOT model (TRAIN_DTYPE float32, frozen BN),
+    in train mode with gradients on; the FrozenBN statistics and affine stay
+    buffers, as the JAX package stop_gradients them. Its dropout and
+    stochastic depth (TRAIN_LSTT_*) act on a forward given a generator."""
     classes = {"aot": AOT, "deaot": DeAOT}
     if cfg.MODEL_VOS not in classes:
         raise NotImplementedError(
             f"MODEL_VOS={cfg.MODEL_VOS!r}: aot_tpu_torch serves "
             f"{sorted(classes)}")
-    if str(cfg.TEST_DTYPE) != "float32":
+    dtype_key = "TRAIN_DTYPE" if train else "TEST_DTYPE"
+    if str(cfg.get(dtype_key)) != "float32":
         raise NotImplementedError(
-            f"TEST_DTYPE={cfg.TEST_DTYPE!r}: aot_tpu_torch serves float32 "
-            "only (ROADMAP.md, Queue 1: bf16 serving)")
+            f"{dtype_key}={cfg.get(dtype_key)!r}: aot_tpu_torch runs float32 "
+            "only (ROADMAP.md, Queue 1: bf16); pass --fp32 or "
+            f"{dtype_key}='float32'")
+    if train and cfg.MODEL_VOS != "aot":
+        raise NotImplementedError(
+            "aot_tpu_torch trains AOT models only; DeAOT training is "
+            "ROADMAP.md Queue 1")
+    if train and not cfg.MODEL_FREEZE_BN:
+        raise NotImplementedError(
+            "MODEL_FREEZE_BN=False (trainable BN) is not ported "
+            "(ROADMAP.md, Queue 1)")
+    drop = {}
+    if cfg.MODEL_VOS == "aot":
+        drop = dict(id_dropout=cfg.TRAIN_LSTT_ID_DROPOUT,
+                    emb_dropout=cfg.TRAIN_LSTT_EMB_DROPOUT,
+                    droppath=cfg.TRAIN_LSTT_DROPPATH,
+                    lt_dropout=cfg.TRAIN_LSTT_LT_DROPOUT,
+                    st_dropout=cfg.TRAIN_LSTT_ST_DROPOUT,
+                    droppath_lst=cfg.TRAIN_LSTT_DROPPATH_LST,
+                    droppath_scaling=cfg.TRAIN_LSTT_DROPPATH_SCALING)
     model = classes[cfg.MODEL_VOS](
         encoder_name=cfg.MODEL_ENCODER,
         encoder_dims=tuple(cfg.MODEL_ENCODER_DIM),
@@ -235,7 +273,10 @@ def build_vos_model(cfg, device="cpu",
         self_heads=cfg.MODEL_SELF_HEADS,
         att_heads=cfg.MODEL_ATT_HEADS,
         decoder_intermediate=cfg.MODEL_DECODER_INTERMEDIATE_LSTT,
-        align_corners=cfg.MODEL_ALIGN_CORNERS)
+        align_corners=cfg.MODEL_ALIGN_CORNERS, **drop)
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
-    return model.requires_grad_(False).to(device).eval()
+    model = model.to(device)
+    if train:
+        return model.requires_grad_(True).train()
+    return model.requires_grad_(False).eval()

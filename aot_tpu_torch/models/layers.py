@@ -1,7 +1,9 @@
 """Basic layers shared across the model (port of aot_tpu/models/layers.py).
 
-Eval-only: DropPath and dropout are identities at eval and are left out.
-Linear and LayerNorm (eps 1e-5, fp32 statistics) are torch's own.
+Stochastic depth and dropout draw from an explicit torch.Generator that the
+caller passes down with the input (`generator`); without one (serving, or
+a deterministic training forward) they are identities. Linear and LayerNorm
+(eps 1e-5, fp32 statistics) are torch's own.
 Submodule names follow the reference PyTorch state dict, so
 `load_state_dict(strict=True)` takes the keys of
 `aot_tpu.utils.torch_import.export_state_dict` as they are.
@@ -30,6 +32,44 @@ def seq_to_2d(x: torch.Tensor, size_2d: Tuple[int, int]) -> torch.Tensor:
 def seq_from_2d(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) -> (B, HW, C)."""
     return x.flatten(2).transpose(1, 2)
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth per sample of the leading batch axis
+    (aot_tpu/models/layers.py:186): keep = floor(1 - rate + U[0, 1)),
+    x / (1 - rate) * keep. Identity when rate is 0 or no generator."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
+                   device=generator.device).to(x.device)
+    return x / keep_prob * torch.floor(keep_prob + u).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Element dropout as flax's nn.Dropout: keep with probability 1 - rate,
+    scale the kept by 1 / (1 - rate). Identity when rate is 0 or no
+    generator."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator,
+                   device=generator.device).to(x.device)
+    return torch.where(u < keep_prob, x / keep_prob, 0.0)
+
+
+class DropPath(nn.Module):
+    """`drop_path` at a fixed rate; no parameters."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return drop_path(x, self.rate, generator)
 
 
 def group_norm_seq(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
@@ -87,11 +127,13 @@ class MultiheadAttention(nn.Module):
     them); the output projection is always present."""
 
     def __init__(self, d_model: int, num_heads: int = 8,
-                 use_linear: bool = True, d_att: Optional[int] = None):
+                 use_linear: bool = True, d_att: Optional[int] = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.d_att = d_att
         self.use_linear = use_linear
+        self.dropout = dropout
         if use_linear:
             self.linear_Q = nn.Linear(d_model, d_model)
             self.linear_K = nn.Linear(d_model, d_model)
@@ -99,13 +141,14 @@ class MultiheadAttention(nn.Module):
         self.projection = nn.Linear(d_model, d_model)
 
     def forward(self, q, k, v, *, valid_len=None, top_k: int = -1,
-                max_mem_len_ratio: float = -1.0) -> torch.Tensor:
+                max_mem_len_ratio: float = -1.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.use_linear:
             q, k, v = self.linear_Q(q), self.linear_K(k), self.linear_V(v)
         out = att_ops.global_attention(
             q, k, v, self.num_heads, self.d_att, valid_len=valid_len,
             top_k=top_k, max_mem_len_ratio=max_mem_len_ratio)
-        return self.projection(out)
+        return self.projection(dropout(out, self.dropout, generator))
 
 
 class MultiheadLocalAttention(nn.Module):

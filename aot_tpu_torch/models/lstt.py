@@ -28,7 +28,9 @@ class LSTTBlockV1(nn.Module):
 
     def __init__(self, d_model: int, self_heads: int = 8, att_heads: int = 8,
                  dim_feedforward: int = 1024, local_dilation: int = 1,
-                 max_dis: int = 7):
+                 max_dis: int = 7, droppath: float = 0.0,
+                 lt_dropout: float = 0.0, st_dropout: float = 0.0,
+                 droppath_lst: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(d_model)
         self.norm2 = nn.LayerNorm(d_model)
@@ -37,13 +39,16 @@ class LSTTBlockV1(nn.Module):
         self.linear_V = nn.Linear(d_model, d_model)
         self.self_attn = L.MultiheadAttention(d_model, self_heads,
                                               use_linear=True)
-        self.long_term_attn = L.MultiheadAttention(d_model, att_heads,
-                                                   use_linear=False)
+        self.long_term_attn = L.MultiheadAttention(
+            d_model, att_heads, use_linear=False, dropout=lt_dropout)
         self.short_term_attn = L.MultiheadLocalAttention(
             d_model, att_heads, max_dis=max_dis, dilation=local_dilation)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.activation = L.GNActDWConv2d(dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.droppath = L.DropPath(droppath)
+        self.droppath_lst = droppath_lst
+        self.lst_dropout = max(lt_dropout, st_dropout)
 
     def fuse_key_value_id(self, key, value, id_emb) -> Mem:
         """V = linear_V(value + id_emb); K unchanged (transformer.py:364-367)."""
@@ -53,11 +58,13 @@ class LSTTBlockV1(nn.Module):
                 curr_id_emb: Optional[torch.Tensor],
                 self_pos: Optional[torch.Tensor], size_2d: Tuple[int, int],
                 *, lt_valid_len=None, top_k: int = -1,
-                max_mem_len_ratio: float = -1.0):
+                max_mem_len_ratio: float = -1.0,
+                generator: Optional[torch.Generator] = None):
+        g = generator
         # self attention: q = k = norm1(tgt) + pos, v = norm1(tgt)
         _tgt = self.norm1(tgt)
         q = _tgt + self_pos.to(_tgt.dtype) if self_pos is not None else _tgt
-        tgt = tgt + self.self_attn(q, q, _tgt)
+        tgt = tgt + self.droppath(self.self_attn(q, q, _tgt), g)
 
         # long/short-term attention
         _tgt = self.norm2(tgt)
@@ -74,13 +81,17 @@ class LSTTBlockV1(nn.Module):
 
         tgt2 = self.long_term_attn(
             curr_q, global_k, global_v, valid_len=lt_valid_len, top_k=top_k,
-            max_mem_len_ratio=max_mem_len_ratio)
+            max_mem_len_ratio=max_mem_len_ratio, generator=g)
         tgt3 = self.short_term_attn(curr_q, local_k, local_v, size_2d)
-        tgt = tgt + (tgt2 + tgt3)
+        if self.droppath_lst:
+            tgt = tgt + self.droppath(tgt2 + tgt3, g)
+        else:
+            tgt = tgt + L.dropout(tgt2 + tgt3, self.lst_dropout, g)
 
         # FFN with the depthwise-conv activation
         _tgt = self.norm3(tgt)
-        tgt = tgt + self.linear2(self.activation(self.linear1(_tgt), size_2d))
+        tgt = tgt + self.droppath(
+            self.linear2(self.activation(self.linear1(_tgt), size_2d)), g)
 
         mems = {"curr": {"k": curr_k, "v": curr_v},
                 "global": {"k": global_k, "v": global_v}}
@@ -94,13 +105,25 @@ class LongShortTermTransformer(nn.Module):
     def __init__(self, num_layers: int = 2, d_model: int = 256,
                  self_heads: int = 8, att_heads: int = 8,
                  dim_feedforward: int = 1024, intermediate_norm: bool = True,
-                 final_norm: bool = True):
+                 final_norm: bool = True, emb_dropout: float = 0.0,
+                 droppath: float = 0.0, lt_dropout: float = 0.0,
+                 st_dropout: float = 0.0, droppath_lst: bool = False,
+                 droppath_scaling: bool = False):
         super().__init__()
         self.intermediate_norm = intermediate_norm
         self.final_norm = final_norm
+        self.emb_dropout = emb_dropout
+
+        def rate(idx):
+            if not droppath_scaling:
+                return droppath
+            return 0.0 if num_layers == 1 else droppath * idx / (num_layers - 1)
+
         self.layers = nn.ModuleList(
-            LSTTBlockV1(d_model, self_heads, att_heads, dim_feedforward)
-            for _ in range(num_layers))
+            LSTTBlockV1(d_model, self_heads, att_heads, dim_feedforward,
+                        droppath=rate(idx), lt_dropout=lt_dropout,
+                        st_dropout=st_dropout, droppath_lst=droppath_lst)
+            for idx in range(num_layers))
         num_norms = (num_layers - 1) if intermediate_norm else 0
         if final_norm:
             num_norms += 1
@@ -113,8 +136,9 @@ class LongShortTermTransformer(nn.Module):
     def forward(self, tgt, lt_mems: Optional[Sequence[Mem]],
                 st_mems: Optional[Sequence[Mem]], curr_id_emb, self_pos,
                 size_2d, *, lt_valid_len=None, top_k: int = -1,
-                max_mem_len_ratio: float = -1.0):
-        output = tgt
+                max_mem_len_ratio: float = -1.0,
+                generator: Optional[torch.Generator] = None):
+        output = L.dropout(tgt, self.emb_dropout, generator)
         intermediates, memories = [], []
         for idx, layer in enumerate(self.layers):
             output, mems = layer(
@@ -123,7 +147,7 @@ class LongShortTermTransformer(nn.Module):
                 st_mems[idx] if st_mems is not None else None,
                 curr_id_emb, self_pos, size_2d,
                 lt_valid_len=lt_valid_len, top_k=top_k,
-                max_mem_len_ratio=max_mem_len_ratio)
+                max_mem_len_ratio=max_mem_len_ratio, generator=generator)
             intermediates.append(output)
             memories.append(mems)
 
@@ -278,8 +302,13 @@ class DualBranchGPM(nn.Module):
     def forward(self, tgt, lt_mems: Optional[Sequence[Mem]],
                 st_mems: Optional[Sequence[Mem]], curr_id_emb, self_pos,
                 size_2d, *, lt_valid_len=None, top_k: int = -1,
-                max_mem_len_ratio: float = -1.0):
+                max_mem_len_ratio: float = -1.0,
+                generator: Optional[torch.Generator] = None):
         del self_pos  # the reference GPM accepts but never uses it
+        if generator is not None:
+            raise NotImplementedError(
+                "DeAOT training (dropout and stochastic depth in the GPM "
+                "stack) is not ported yet (ROADMAP.md, Queue 1)")
         output, output_id = tgt, None
         intermediates, memories = [], []
         for idx, layer in enumerate(self.layers):

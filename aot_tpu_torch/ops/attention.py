@@ -10,13 +10,18 @@ attention of a CUDA tensor runs the hand-written kernel
 Global attention over a long live memory (`use_flash`) goes to the flash
 kernel (ops/kernels/flash_attn.py) on a CUDA tensor and to its plain
 version on a CPU tensor; below that it is plain PyTorch on both, as the JAX
-package leaves it to XLA.
+package leaves it to XLA. Inside `attn_training_context` (the training
+step) every global attention takes the differentiable flash path
+(`flash_attention_train`: the forward kernel and the backward kernels on
+CUDA, both plain versions on the CPU) and local attention the plain window
+form, which autograd differentiates.
 
 Layouts: sequences are (B, L, C).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple, Union
 
@@ -74,14 +79,43 @@ def _topk_filter(scores: torch.Tensor, top_k: int) -> torch.Tensor:
     return torch.where(scores >= kth, scores, torch.full_like(scores, NEG_INF))
 
 
+# Set by attn_training_context. A process-wide flag, as the JAX package's
+# `_TRAINING_TRACE`, and not a thread-local or a context variable: the
+# per-frame recompute of a checkpointed forward runs in autograd's device
+# threads during backward(), and must take the same routes as the forward.
+_TRAINING = False
+
+
+@contextlib.contextmanager
+def attn_training_context():
+    """Inside it (forward and backward of a training step), every global
+    attention takes the differentiable flash path whatever its size, and
+    local attention the plain window form (the JAX package's training trace
+    flag, aot_tpu/ops/attention.py:107-155)."""
+    global _TRAINING
+    prev, _TRAINING = _TRAINING, True
+    try:
+        yield
+    finally:
+        _TRAINING = prev
+
+
+def in_training() -> bool:
+    return _TRAINING
+
+
 def use_flash(lk: int, valid_len, top_k: int,
               max_mem_len_ratio: float) -> bool:
-    """The dispatch rule of aot_tpu/ops/attention.py:128 `_use_flash`: a
-    read of a live-length masked memory (`valid_len` given) of at least
-    FLASH_MIN_KEYS keys, with neither top-k filtering nor the memory-length
-    rescale (those stay on the dense path)."""
-    return (valid_len is not None and top_k <= 0 and max_mem_len_ratio <= 0
-            and lk >= FLASH_MIN_KEYS)
+    """The dispatch rule of aot_tpu/ops/attention.py:128 `_use_flash`:
+    neither top-k filtering nor the memory-length rescale (those stay on the
+    dense path), and then, in training, every read; at serving, a read of a
+    live-length masked memory (`valid_len` given) of at least FLASH_MIN_KEYS
+    keys."""
+    if top_k > 0 or max_mem_len_ratio > 0:
+        return False
+    if in_training():
+        return True
+    return valid_len is not None and lk >= FLASH_MIN_KEYS
 
 
 def global_attention(
@@ -105,6 +139,9 @@ def global_attention(
     b, lq, cq = q.shape
     lk = k.shape[1]
     if use_flash(lk, valid_len, top_k, max_mem_len_ratio):
+        if in_training():
+            return fa.flash_attention_train(q, k, v, valid_len, num_heads,
+                                            d_att).to(v.dtype)
         return fa.flash_attention(q, k, v, valid_len, num_heads,
                                   d_att)[0].to(v.dtype)
     h = num_heads
@@ -172,12 +209,19 @@ def local_attention(
     rel_v: (h, dv, win2) relative value bias, or None
     Returns (B, HW, h*dv).
 
-    At dilation 1 a CPU tensor takes the plain version and a CUDA tensor
-    the CUDA kernel (local_window_attention); at other dilations only the
-    plain version exists, for CPU tensors. Anything else raises.
+    In training (attn_training_context) every device takes the window form,
+    differentiable by autograd, as the JAX package leaves it to XLA there
+    (aot_tpu/ops/attention.py:351-368): the CUDA kernel has no backward.
+    Otherwise, at dilation 1 a CPU tensor takes the plain version and a
+    CUDA tensor the CUDA kernel (local_window_attention); at other
+    dilations only the plain version exists, for CPU tensors. Anything
+    else raises.
     """
     kw = dict(num_heads=num_heads, size_2d=tuple(size_2d), max_dis=max_dis,
               d_att=d_att)
+    if in_training():
+        return lwa.local_window_attention_plain(
+            q, k, v, rel_bias, rel_v, dilation=dilation, **kw)
     if dilation == 1:
         return lwa.local_window_attention(q, k, v, rel_bias, rel_v, **kw)
     if q.device.type == "cpu":

@@ -12,6 +12,9 @@ ops/attention.py `use_flash`.
   flash_attention_cuda   the kernel wrapper (counts LAUNCHES)
   flash_attention_plain  the same function in plain PyTorch: a masked
                          softmax over the live keys
+  flash_attention_train  the differentiable form (the `FlashAttention`
+                         autograd Function): this forward, and the backward
+                         of ops/kernels/flash_attn_bwd.py
 
 All three return (out, lse): out (B, Lq, h*dv) in fp32; lse (B*h, Lq), the
 log-sum-exp of the scaled scores over the live keys. A row with no live key
@@ -176,3 +179,46 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, valid_len, num_heads, d_att)
     return flash_attention_cuda(q, k, v, valid_len, num_heads, d_att)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (flash_attn_vjp.py:248-335, the custom
+    VJP of `_flash_heads`): the forward saves q, k, v, valid_len, out and
+    lse; the backward is ops/kernels/flash_attn_bwd.py. A CUDA tensor runs
+    the forward kernel and the backward kernels, a CPU tensor both plain
+    versions; there is no third route."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid_len, num_heads, d_att):
+        out, lse = flash_attention(q, k, v, valid_len, num_heads, d_att)
+        tensors = (q, k, v, out, lse)
+        if isinstance(valid_len, torch.Tensor):
+            tensors += (valid_len,)
+        else:
+            ctx.valid_len = valid_len
+        ctx.save_for_backward(*tensors)
+        ctx.heads = (num_heads, d_att)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from aot_tpu_torch.ops.kernels.flash_attn_bwd import flash_attention_bwd
+
+        q, k, v, out, lse, *valid = ctx.saved_tensors
+        valid_len = valid[0] if valid else ctx.valid_len
+        dq, dk, dv = flash_attention_bwd(q, k, v, valid_len, out, lse, dout,
+                                         *ctx.heads)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_len: ValidLen,
+    num_heads: int,
+    d_att: Optional[int] = None,
+) -> torch.Tensor:
+    """Softmax attention over the live keys with a flash backward; returns
+    out (B, Lq, h*dv) fp32. valid_len None means all keys live."""
+    return FlashAttention.apply(q, k, v, valid_len, num_heads, d_att)

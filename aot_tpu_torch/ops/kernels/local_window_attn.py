@@ -141,6 +141,14 @@ def local_window_attention_cuda(
     """Launch the CUDA kernel (dilation 1, fp32). Raises on any input it
     does not take, and if the launch fails."""
     global LAUNCHES
+    tensors = (q, k, v, rel_bias, rel_v)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "local_window_attention_cuda is forward-only: an input requires "
+            "grad, and its gradient would be lost; training takes "
+            "local_window_attention_plain (ops.attention.local_attention "
+            "inside attn_training_context)")
     if q.device.type != "cuda":
         raise ValueError(f"local_window_attention_cuda: q is on {q.device}")
     hgt, wid = size_2d

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from aot_tpu.ops import attention as jatt
@@ -31,14 +32,20 @@ def _j(x):
 
 @pytest.mark.parametrize("h,w,feats", [(5, 7, 128), (17, 17, 128), (30, 30, 16)])
 def test_sine_position_embedding(h, w, feats):
-    want = np.asarray(jpos.sine_position_embedding(h, w, num_pos_feats=feats))
+    # The JAX side runs op by op: a jitted call of these static shapes is
+    # looked up in the persistent compilation cache that every test worker
+    # shares (aot_tpu/utils/runtime.py), and this case once disagreed there
+    # while passing alone; eager primitives compile in this process.
+    with jax.disable_jit():
+        want = np.asarray(jpos.sine_position_embedding(h, w,
+                                                       num_pos_feats=feats))
+        want_seq = np.asarray(jpos.sine_position_embedding_seq(h, w,
+                                                               2 * feats))
     got = pos.sine_position_embedding(h, w, num_pos_feats=feats).numpy()
     assert got.shape == (1, h, w, 2 * feats)
     np.testing.assert_allclose(got, want, **TOL)
     seq = pos.sine_position_embedding_seq(h, w, 2 * feats).numpy()
-    np.testing.assert_allclose(
-        seq, np.asarray(jpos.sine_position_embedding_seq(h, w, 2 * feats)),
-        **TOL)
+    np.testing.assert_allclose(seq, want_seq, **TOL)
 
 
 @pytest.mark.parametrize("align_corners", [True, False])
