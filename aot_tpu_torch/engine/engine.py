@@ -24,7 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from aot_tpu.data import IMAGENET_MEAN, IMAGENET_STD
+from aot_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
 from aot_tpu_torch.engine import state as S
 from aot_tpu_torch.ops.image import interpolate_bilinear
 

@@ -28,6 +28,7 @@ from aot_tpu_torch.models.encoders import build_encoder
 from aot_tpu_torch.models.layers import dropout, seq_from_2d, seq_to_2d
 from aot_tpu_torch.models.lstt import DualBranchGPM, LongShortTermTransformer
 from aot_tpu_torch.ops.position import sine_position_embedding_seq
+from aot_tpu_torch.utils.device import resolve_device
 
 
 class AOT(nn.Module):
@@ -224,18 +225,20 @@ def init_weights(model: AOT, generator: torch.Generator) -> None:
             _uniform_(p, math.sqrt(6.0 / (p.shape[1] + p.shape[2])), g)
 
 
-def build_vos_model(cfg, device="cpu",
+def build_vos_model(cfg, device=None,
                     generator: Optional[torch.Generator] = None, *,
                     train: bool = False) -> AOT:
     """Construct the model from a Config (aot.py:328-353): AOT or DeAOT
     (`MODEL_VOS`) with the MobileNetV2 encoder, fp32, weights drawn from
-    `generator` (seed 0 when None), on `device`.
+    `generator` (seed 0 when None), on `device`: cuda:0 by default, which
+    raises when there is no card (pass device='cpu' for the CPU).
 
     train=False: the serving model, in eval mode with gradients off.
     train=True: the trainable AOT model (TRAIN_DTYPE float32, frozen BN),
     in train mode with gradients on; the FrozenBN statistics and affine stay
     buffers, as the JAX package stop_gradients them. Its dropout and
     stochastic depth (TRAIN_LSTT_*) act on a forward given a generator."""
+    device = resolve_device(device)
     classes = {"aot": AOT, "deaot": DeAOT}
     if cfg.MODEL_VOS not in classes:
         raise NotImplementedError(

@@ -5,8 +5,10 @@ live lengths, top-k filtering and the eval-time memory-length rescale;
 dilated local-window attention with relative key/value biases.
 
 Dispatch is by the tensor's device, not by a global backend flag: the local
-attention of a CUDA tensor runs the hand-written kernel
-(ops/kernels/local_window_attn.py), a CPU tensor its plain PyTorch version.
+attention of a CUDA tensor runs a hand-written kernel
+(ops/kernels/local_window_attn.py: the flat one up to
+DENSE_LOCAL_MAX_TOKENS query tokens, the wide one above, as the JAX package
+switches; `local_route`), a CPU tensor its plain PyTorch version.
 Global attention over a long live memory (`use_flash`) goes to the flash
 kernel (ops/kernels/flash_attn.py) on a CUDA tensor and to its plain
 version on a CPU tensor; below that it is plain PyTorch on both, as the JAX
@@ -36,6 +38,16 @@ NEG_INF = -1e30
 # to the flash kernel: the JAX package's fp32 default
 # (aot_tpu/ops/attention.py:81).
 FLASH_MIN_KEYS = 8192
+
+# Query tokens above which a dilation-1 local read takes the wide kernel:
+# the JAX package's crossover, aot_tpu/ops/attention.py:305
+# _DENSE_LOCAL_MAX_TOKENS = 2500, a TPU v5e measurement. On the H100 the
+# wide kernel is the faster one at 30x30 too (chip_smoke.py phase 3;
+# PERF.md), so this switch is kept only until the flat kernel is retired.
+# 2,442 tokens (YouTube-VOS 720p at the default resolution) stay on the
+# flat kernel; 3,268 (720p at --max_resolution 720) and 7,232 (DAVIS
+# 1080p) take the wide one.
+DENSE_LOCAL_MAX_TOKENS = 2500
 
 # max score-tensor elements before queries are chunked (~256 MB fp32)
 _SCORE_BUDGET = 64 * 1024 * 1024
@@ -189,6 +201,21 @@ def relative_emb_from_q(q: torch.Tensor, weight: torch.Tensor,
     return qh @ weight.transpose(1, 2) + bias[:, None, :]
 
 
+def local_route(tokens: int, device_type: str, dilation: int,
+                training: bool) -> str:
+    """Which implementation serves a local read of `tokens` query tokens:
+    'plain' (the window form: training on any device, and every CPU
+    tensor), 'flat' or 'wide' (the CUDA kernels, at dilation 1, split at
+    DENSE_LOCAL_MAX_TOKENS as aot_tpu/ops/attention.py:376-383 splits the
+    TPU kernels), or 'none' (a card tensor at another dilation: no kernel
+    serves it)."""
+    if training or device_type == "cpu":
+        return "plain"
+    if dilation != 1:
+        return "none"
+    return "wide" if tokens > DENSE_LOCAL_MAX_TOKENS else "flat"
+
+
 def local_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -209,27 +236,28 @@ def local_attention(
     rel_v: (h, dv, win2) relative value bias, or None
     Returns (B, HW, h*dv).
 
-    In training (attn_training_context) every device takes the window form,
-    differentiable by autograd, as the JAX package leaves it to XLA there
-    (aot_tpu/ops/attention.py:351-368): the CUDA kernel has no backward.
-    Otherwise, at dilation 1 a CPU tensor takes the plain version and a
-    CUDA tensor the CUDA kernel (local_window_attention); at other
-    dilations only the plain version exists, for CPU tensors. Anything
-    else raises.
+    The route is `local_route`'s. In training (attn_training_context) every
+    device takes the window form, differentiable by autograd, as the JAX
+    package leaves it to XLA there (aot_tpu/ops/attention.py:351-368): the
+    CUDA kernels have no backward. A CPU tensor takes the plain version; a
+    CUDA tensor at dilation 1 the flat kernel up to DENSE_LOCAL_MAX_TOKENS
+    query tokens and the wide kernel above. Anything else raises.
     """
     kw = dict(num_heads=num_heads, size_2d=tuple(size_2d), max_dis=max_dis,
               d_att=d_att)
-    if in_training():
+    route = local_route(size_2d[0] * size_2d[1], q.device.type, dilation,
+                        in_training())
+    if route == "plain":
         return lwa.local_window_attention_plain(
             q, k, v, rel_bias, rel_v, dilation=dilation, **kw)
-    if dilation == 1:
-        return lwa.local_window_attention(q, k, v, rel_bias, rel_v, **kw)
-    if q.device.type == "cpu":
-        return lwa.local_window_attention_plain(
-            q, k, v, rel_bias, rel_v, dilation=dilation, **kw)
+    if route == "wide":
+        return lwa.local_window_attention_wide_cuda(q, k, v, rel_bias, rel_v,
+                                                    **kw)
+    if route == "flat":
+        return lwa.local_window_attention_cuda(q, k, v, rel_bias, rel_v, **kw)
     raise NotImplementedError(
         f"local attention on {q.device} at dilation {dilation}: the CUDA "
-        "kernel serves dilation 1 only (see ROADMAP.md)")
+        "kernels serve dilation 1 only (see ROADMAP.md)")
 
 
 # --- gated propagation (DeAOT) ---------------------------------------------

@@ -36,6 +36,12 @@ def interpolate_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return x.index_select(-3, iy).index_select(-2, ix)
 
 
+def flip_horizontal(x: torch.Tensor) -> torch.Tensor:
+    """Mirror (B, H, W) label maps or (B, H, W, C) images left to right
+    (the evaluator's flip TTA; jnp.flip(x, axis=2) in the JAX package)."""
+    return x.flip(2)
+
+
 def one_hot_mask(mask: torch.Tensor, cls_num: int) -> torch.Tensor:
     """(B, H, W) int mask -> (B, H, W, cls_num+1) float32 one-hot."""
     if mask.ndim == 4 and mask.shape[-1] == 1:

@@ -1,16 +1,28 @@
-"""Local-window attention: the CUDA kernel and its plain PyTorch version.
+"""Local-window attention: the CUDA kernels and their plain PyTorch version.
 
-Port of aot_tpu/ops/pallas/local_window_attn.py:475
-local_window_attention_flat (kernel body `_kernel_flat`, :414). The kernel
-is csrc/local_window_attn.cu; its header says what bounds it on Hopper.
+Two kernels compute the same function:
+  - csrc/local_window_attn.cu, the port of aot_tpu/ops/pallas/
+    local_window_attn.py:475 local_window_attention_flat (kernel body
+    `_kernel_flat`, :414): one warp per (query, head), for the eval grids
+    up to 2,500 query tokens;
+  - csrc/local_window_attn_wide.cu, the port of local_window_attn.py:294
+    local_window_attention_wide (kernel body `_kernel_wide`, :236): 4 x 32
+    query tiles with the key/value halo staged in shared memory, for the
+    full-resolution grids above 2,500 tokens.
+Each header says what bounds it on Hopper. ops/attention.py picks one
+(`local_route`).
 
-  local_window_attention        entry point: a CPU tensor takes the plain
-                                version, a CUDA tensor launches the kernel
-                                or raises — there is no fallback
-  local_window_attention_cuda   the kernel wrapper (counts LAUNCHES)
-  local_window_attention_plain  the same function in plain PyTorch: the
-                                win² shifted slices of the zero-padded
-                                image (F.unfold), no (HW x HW) tensor
+  local_window_attention             entry point: a CPU tensor takes the
+                                     plain version, a CUDA tensor launches
+                                     the flat kernel or raises — there is no
+                                     fallback
+  local_window_attention_cuda        the flat kernel's wrapper (LAUNCHES)
+  local_window_attention_wide_cuda   the wide kernel's wrapper
+                                     (WIDE_LAUNCHES)
+  local_window_attention_plain       the same function in plain PyTorch:
+                                     the win² shifted slices of the
+                                     zero-padded image (F.unfold), no
+                                     (HW x HW) tensor
 
 Layouts: q, k (B, HW, h*d); v (B, HW, h*dv); rel_bias (B, h, HW, win²);
 rel_v (h, dv, win²) or None; out (B, HW, h*dv).
@@ -34,10 +46,11 @@ MAX_DV = 1024     # value channels per head: the kernel loops over them, and
                   # 1024 (DeAOT's 2 x 512 value stream at h=1) is the widest
                   # the card has checked
 
-# Kernel launches since the count was last reset; the wrapper adds one per
-# launch and nothing else touches it, so a run can show it went through the
-# kernel.
-LAUNCHES = 0
+# Kernel launches since the count was last reset, one count per kernel;
+# each wrapper adds one per launch and nothing else touches them, so a run
+# can show it went through the kernel.
+LAUNCHES = 0         # csrc/local_window_attn.cu
+WIDE_LAUNCHES = 0    # csrc/local_window_attn_wide.cu
 
 
 def _window_valid(hgt: int, wid: int, max_dis: int, dilation: int,
@@ -95,7 +108,7 @@ def local_window_attention_plain(
 
 
 def shape_error(d: int, dv: int, max_dis: int) -> Optional[str]:
-    """Why the kernel does not take per-head widths (d, dv) and window
+    """Why the flat kernel does not take per-head widths (d, dv) and window
     radius max_dis, or None."""
     if not 0 <= max_dis <= MAX_DIS:
         return f"max_dis={max_dis} (at most {MAX_DIS})"
@@ -106,24 +119,79 @@ def shape_error(d: int, dv: int, max_dis: int) -> Optional[str]:
     return None
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("local_window_attn")
-    fn = lib.local_window_attn_fwd
+def wide_shape_error(d: int, dv: int, max_dis: int) -> Optional[str]:
+    """Why the wide kernel does not take (d, dv, max_dis), or None. It walks
+    d and dv in 32-channel chunks, so only the window is bounded (its score
+    block must fit shared memory)."""
+    if not 0 <= max_dis <= MAX_DIS:
+        return f"max_dis={max_dis} (at most {MAX_DIS})"
+    if d < 1 or dv < 1:
+        return f"d={d}, dv={dv} (at least 1)"
+    return None
+
+
+def _load(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def _lib() -> ctypes.CDLL:
+    return _load("local_window_attn", "local_window_attn_fwd",
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _wide_lib() -> ctypes.CDLL:
+    return _load("local_window_attn_wide", "local_window_attn_wide_fwd",
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _check(fn: str, name: str, t: torch.Tensor, shape, device) -> None:
     if (t.device != device or t.dtype != torch.float32
             or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
         raise ValueError(
-            f"local_window_attention_cuda: {name} must be a contiguous "
-            f"float32 tensor of shape {tuple(shape)} on {device}; got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})")
+            f"{fn}: {name} must be a contiguous float32 tensor of shape "
+            f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def _checked_dims(fn: str, why_not, q, k, v, rel_bias, rel_v, num_heads,
+                  size_2d, max_dis, d_att):
+    """The checks both kernel wrappers make before a launch. Returns
+    (B, h, H, W, d, dv); raises on anything the kernel does not take."""
+    tensors = (q, k, v, rel_bias, rel_v)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{fn} is forward-only: an input requires grad, and its gradient "
+            "would be lost; training takes local_window_attention_plain "
+            "(ops.attention.local_attention inside attn_training_context)")
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: q is on {q.device}")
+    hgt, wid = size_2d
+    hw = hgt * wid
+    b = q.shape[0]
+    h = num_heads
+    d = d_att if d_att is not None else q.shape[-1] // h
+    dv = v.shape[-1] // h
+    win2 = (2 * max_dis + 1) ** 2
+    why = why_not(d, dv, max_dis)
+    if why is not None or v.shape[-1] != h * dv:
+        raise ValueError(f"{fn}: unsupported {why or ''} (heads={h}, v width "
+                         f"{v.shape[-1]})")
+    dev = q.device
+    _check(fn, "q", q, (b, hw, h * d), dev)
+    _check(fn, "k", k, (b, hw, h * d), dev)
+    _check(fn, "v", v, (b, hw, h * dv), dev)
+    _check(fn, "rel_bias", rel_bias, (b, h, hw, win2), dev)
+    if rel_v is not None:
+        _check(fn, "rel_v", rel_v, (h, dv, win2), dev)
+    return b, h, hgt, wid, d, dv
 
 
 def local_window_attention_cuda(
@@ -138,39 +206,14 @@ def local_window_attention_cuda(
     max_dis: int = 7,
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel (dilation 1, fp32). Raises on any input it
-    does not take, and if the launch fails."""
+    """Launch the flat CUDA kernel (dilation 1, fp32). Raises on any input
+    it does not take, and if the launch fails."""
     global LAUNCHES
-    tensors = (q, k, v, rel_bias, rel_v)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "local_window_attention_cuda is forward-only: an input requires "
-            "grad, and its gradient would be lost; training takes "
-            "local_window_attention_plain (ops.attention.local_attention "
-            "inside attn_training_context)")
-    if q.device.type != "cuda":
-        raise ValueError(f"local_window_attention_cuda: q is on {q.device}")
-    hgt, wid = size_2d
-    hw = hgt * wid
-    b = q.shape[0]
-    h = num_heads
-    d = d_att if d_att is not None else q.shape[-1] // h
-    dv = v.shape[-1] // h
-    win2 = (2 * max_dis + 1) ** 2
-    why = shape_error(d, dv, max_dis)
-    if why is not None or v.shape[-1] != h * dv:
-        raise ValueError(f"local_window_attention_cuda: unsupported "
-                         f"{why or ''} (heads={h}, v width {v.shape[-1]})")
+    b, h, hgt, wid, d, dv = _checked_dims(
+        "local_window_attention_cuda", shape_error, q, k, v, rel_bias, rel_v,
+        num_heads, size_2d, max_dis, d_att)
     dev = q.device
-    _check("q", q, (b, hw, h * d), dev)
-    _check("k", k, (b, hw, h * d), dev)
-    _check("v", v, (b, hw, h * dv), dev)
-    _check("rel_bias", rel_bias, (b, h, hw, win2), dev)
-    if rel_v is not None:
-        _check("rel_v", rel_v, (h, dv, win2), dev)
-
-    out = torch.empty((b, hw, h * dv), device=dev, dtype=torch.float32)
+    out = torch.empty((b, hgt * wid, h * dv), device=dev, dtype=torch.float32)
     err = _lib().local_window_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
         None if rel_v is None else rel_v.data_ptr(), out.data_ptr(),
@@ -180,6 +223,39 @@ def local_window_attention_cuda(
         raise RuntimeError(
             f"local_window_attn_fwd failed to launch: CUDA error {err}")
     LAUNCHES += 1
+    return out
+
+
+def local_window_attention_wide_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_bias: torch.Tensor,
+    rel_v: Optional[torch.Tensor],
+    *,
+    num_heads: int,
+    size_2d: Tuple[int, int],
+    max_dis: int = 7,
+    d_att: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch the wide (query-tiled) CUDA kernel (dilation 1, fp32). Raises
+    on any input it does not take, and if the launch fails."""
+    global WIDE_LAUNCHES
+    b, h, hgt, wid, d, dv = _checked_dims(
+        "local_window_attention_wide_cuda", wide_shape_error, q, k, v,
+        rel_bias, rel_v, num_heads, size_2d, max_dis, d_att)
+    dev = q.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty((b, hgt * wid, h * dv), device=dev, dtype=torch.float32)
+    err = _wide_lib().local_window_attn_wide_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
+        None if rel_v is None else rel_v.data_ptr(), out.data_ptr(),
+        b, h, hgt, wid, d, dv, max_dis, 1.0 / math.sqrt(d), sms,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"local_window_attn_wide_fwd failed to launch: CUDA error {err}")
+    WIDE_LAUNCHES += 1
     return out
 
 
@@ -196,8 +272,8 @@ def local_window_attention(
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
     """Dilation-1 local-window attention. A CPU tensor takes the plain
-    version; any other device goes to the CUDA kernel, which raises on what
-    it cannot take."""
+    version; any other device goes to the flat CUDA kernel, which raises on
+    what it cannot take."""
     kw = dict(num_heads=num_heads, size_2d=tuple(size_2d), max_dis=max_dis,
               d_att=d_att)
     if q.device.type == "cpu":

@@ -33,7 +33,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--save_step", type=int, default=-1)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default=None,
-                        help="torch device (default: cuda:0 if present)")
+                        help="torch device (default: cuda:0; raises without a "
+                             "card unless --device cpu)")
     parser.add_argument("--set", dest="overrides", action="append",
                         default=[], metavar="KEY=VALUE",
                         help="raw config override (python literal value)")

@@ -6,7 +6,9 @@ pretrained weights, the sequential-training curriculum (`use_prev_pred` from
 TRAIN_SEQ_TRAINING_START_RATIO on), logging, and the raw and EMA checkpoint
 streams. fp32 on one device only: bf16 (TRAIN_DTYPE) and data parallelism
 over several devices are later work (ROADMAP.md, Queue 1), and both raise.
-The batches come from aot_tpu.data.loader.TrainLoader, which imports no JAX.
+It runs on cuda:0 unless given another device, and raises when there is no
+card. The batches come from the port's copy of the JAX package's loader
+(aot_tpu_torch.data.loader.TrainLoader).
 """
 
 from __future__ import annotations
@@ -17,18 +19,14 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from aot_tpu.data.loader import TrainLoader
+from aot_tpu_torch.data.loader import TrainLoader
 from aot_tpu_torch.engine.train import build_train_engine
 from aot_tpu_torch.models import build_vos_model
 from aot_tpu_torch.train.step import create_train_state, make_train_step
 from aot_tpu_torch.utils import checkpoint as ckpt_lib
+from aot_tpu_torch.utils.device import resolve_device
 
 StepHook = Callable[[int, Dict[str, torch.Tensor]], None]
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda", 0) if torch.cuda.is_available() \
-        else torch.device("cpu")
 
 
 class Trainer:
@@ -43,8 +41,7 @@ class Trainer:
                 "one device; data parallelism is ROADMAP.md Queue 1")
         self.cfg = cfg
         self.seed = seed
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = resolve_device(device)
         model = build_vos_model(cfg, device=self.device, train=True,
                                 generator=torch.Generator().manual_seed(seed))
         self.engine = build_train_engine(model, cfg)
@@ -118,14 +115,15 @@ class Trainer:
                             on_step: Optional[StepHook] = None) -> None:
         """Train to TRAIN_TOTAL_STEPS (or max_steps) (reference:
         trainer.py:356-593). `dataset`: the clip source, by default
-        aot_tpu.data.train_datasets.build_train_dataset(cfg). `on_step`, if
-        given, is called after every step with (step, stats)."""
+        aot_tpu_torch.data.train_datasets.build_train_dataset(cfg).
+        `on_step`, if given, is called after every step with (step,
+        stats)."""
         cfg = self.cfg
         total = cfg.TRAIN_TOTAL_STEPS if max_steps is None else max_steps
         seq_start = int(cfg.TRAIN_SEQ_TRAINING_START_RATIO
                         * cfg.TRAIN_TOTAL_STEPS)
         if dataset is None:
-            from aot_tpu.data.train_datasets import build_train_dataset
+            from aot_tpu_torch.data.train_datasets import build_train_dataset
 
             dataset = build_train_dataset(cfg)
         loader = TrainLoader(dataset, cfg.TRAIN_BATCH_SIZE,

@@ -1,6 +1,7 @@
-"""aot_tpu_torch stays free of JAX: importing every module of the package
-leaves jax and flax out of sys.modules, and neither the package nor
-chip_smoke.py has a JAX import. chip_smoke.py refuses to run without a
+"""aot_tpu_torch stands alone: importing every module of the package in a
+clean process leaves jax, flax and the JAX package aot_tpu (and anything
+under it) out of sys.modules, and no source of the package nor
+chip_smoke.py imports any of them. chip_smoke.py refuses to run without a
 card, and outside a checkout of the repository."""
 
 import os
@@ -16,6 +17,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "aot_tpu_torch"
 JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M)
+PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+aot_tpu(\.|\s|$)", re.M)
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -25,7 +27,7 @@ names = [m.name for m in pkgutil.walk_packages(aot_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 print(len(names), sorted(m for m in sys.modules
-                         if m.split(".")[0] in ("jax", "flax")))
+                         if m.split(".")[0] in ("jax", "flax", "aot_tpu")))
 """
 
 
@@ -48,6 +50,16 @@ def test_no_jax_import_in_port_sources():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if JAX_IMPORT.search(f.read_text())]
     assert not offenders
+
+
+def test_no_aot_tpu_import_in_port_sources():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if PACKAGE_IMPORT.search(f.read_text())]
+    assert not offenders
+    assert PACKAGE_IMPORT.search("from aot_tpu.data import X")
+    assert PACKAGE_IMPORT.search("    import aot_tpu")
+    assert not PACKAGE_IMPORT.search("from aot_tpu_torch.data import X")
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):

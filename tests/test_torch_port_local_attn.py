@@ -1,10 +1,13 @@
 """The port's local-window attention (plain version, the CPU path of
 ops/kernels/local_window_attn.py) against aot_tpu's dense oracle and its
-flat Pallas kernel in interpret mode, on seeded numpy inputs.
+flat, wide and narrow Pallas kernels in interpret mode, and against the
+JAX dispatch above its 2,500-token crossover (the banded form on the CPU),
+on seeded numpy inputs; and the port's route rule (`local_route`).
 
-The CUDA kernel itself runs only on the card; chip_smoke.py holds it
-against this plain version there. Tolerance 2e-5, as the JAX package's own
-kernel tests use."""
+The CUDA kernels themselves run only on the card; chip_smoke.py holds them
+against this plain version there. Tolerance 2e-5 against the flat kernel
+and the dense oracle, as the JAX package's own kernel tests use; 1e-5
+against the wide and narrow kernels and the banded dispatch."""
 
 import numpy as np
 import pytest
@@ -12,12 +15,16 @@ import torch
 
 import jax.numpy as jnp
 
+from aot_tpu.ops import attention as jax_att
 from aot_tpu.ops.attention import _local_attention_dense
-from aot_tpu.ops.pallas.local_window_attn import local_window_attention_flat
+from aot_tpu.ops.pallas.local_window_attn import (local_window_attention,
+                                                   local_window_attention_flat,
+                                                   local_window_attention_wide)
 from aot_tpu_torch.ops import attention as att
 from aot_tpu_torch.ops.kernels import local_window_attn as lwa
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+TIGHT = dict(atol=1e-5, rtol=1e-5)
 
 
 def _mk(b, hgt, wid, h, d, dv, max_dis, with_rv, seed=0):
@@ -91,3 +98,56 @@ def test_kernel_wrapper_refuses_non_cuda_tensors():
         att.local_attention(*meta, **kw)
     with pytest.raises(NotImplementedError):
         att.local_attention(*meta, **kw, dilation=2)
+
+
+HEADS = {"aot": (2, 8, 8), "deaot": (1, 16, 64)}   # (heads, d, dv)
+
+
+@pytest.mark.parametrize("head", list(HEADS))
+@pytest.mark.parametrize("with_rv", [True, False])
+@pytest.mark.parametrize("hgt,wid,rq", [(10, 12, 4), (9, 7, 8), (8, 8, 8)])
+def test_plain_matches_wide_and_narrow_kernels(hgt, wid, rq, with_rv, head):
+    """The TPU wide kernel (#2, ported as csrc/local_window_attn_wide.cu)
+    and narrow kernel (#3) in interpret mode, at the narrow kernel's test
+    grids (tests/test_local_window_kernel.py), an AOT-like and a DeAOT-like
+    head."""
+    h, d, dv = HEADS[head]
+    args = _mk(2, hgt, wid, h, d, dv, 2, with_rv, seed=hgt * wid)
+    j, t = _both(args)
+    kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=2, d_att=d)
+    got = lwa.local_window_attention_plain(*t, **kw).numpy()
+    for fn in (local_window_attention_wide, local_window_attention):
+        want = fn(*j, **kw, rows_per_band=rq, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(want), **TIGHT)
+
+
+def test_plain_matches_jax_dispatch_above_the_threshold():
+    """52x52 = 2,704 query tokens, above DENSE_LOCAL_MAX_TOKENS: the JAX
+    dispatch takes its banded form on the CPU (the wide kernel on a TPU),
+    the port its plain version on the CPU (the wide kernel on the card)."""
+    hgt = wid = 52
+    assert hgt * wid > att.DENSE_LOCAL_MAX_TOKENS
+    assert jax_att._DENSE_LOCAL_MAX_TOKENS == att.DENSE_LOCAL_MAX_TOKENS
+    args = _mk(1, hgt, wid, 2, 8, 8, 7, True, seed=5)
+    j, t = _both(args)
+    kw = dict(num_heads=2, size_2d=(hgt, wid), max_dis=7, d_att=8)
+    got = att.local_attention(*t, **kw).numpy()
+    want = np.asarray(jax_att.local_attention(*j, **kw))
+    np.testing.assert_allclose(got, want, **TIGHT)
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("tokens", [2500, 2501])
+def test_route(tokens, device, training):
+    """The JAX rule (aot_tpu/ops/attention.py:376-383): above 2,500 query
+    tokens at dilation 1 a card tensor takes the wide kernel, at or below
+    it the flat one; a CPU tensor, and training on any device, the plain
+    version; a card tensor at another dilation has no kernel."""
+    route = att.local_route(tokens, device, 1, training)
+    if training or device == "cpu":
+        assert route == "plain"
+    else:
+        assert route == ("wide" if tokens > 2500 else "flat")
+    want_dil2 = "plain" if training or device == "cpu" else "none"
+    assert att.local_route(tokens, device, 2, training) == want_dil2

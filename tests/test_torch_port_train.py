@@ -89,7 +89,7 @@ def setup():
 def _port_model(cfg, params):
     sd, unmapped = export_state_dict(params, cfg)
     assert not unmapped
-    model = build_vos_model(cfg, train=True)
+    model = build_vos_model(cfg, device="cpu", train=True)
     load_reference_state_dict(model, sd)
     assert model.training and all(p.requires_grad for p in model.parameters())
     return model
@@ -206,7 +206,7 @@ def test_matmul_resize_and_permutations(align_corners):
 def test_param_groups_match_jax_leaf_by_leaf(setup, over):
     _, _, params = setup
     cfg = _train_cfg(**over)
-    model = build_vos_model(cfg, train=True)
+    model = build_vos_model(cfg, device="cpu", train=True)
     got = poptim.build_param_groups(cfg, list(model.named_parameters()))
     port_name = {my: tk for my, tk, _ in build_rules(cfg)}
     want = {key: _flatten(tree)
@@ -316,7 +316,7 @@ def test_recompute_replays_the_dropout_draws():
     frames, masks = map(torch.from_numpy, _clip(seed=2))
 
     def run(remat, seed):
-        model = build_vos_model(cfg, train=True,
+        model = build_vos_model(cfg, device="cpu", train=True,
                                 generator=torch.Generator().manual_seed(0))
         eng = build_train_engine(model, cfg)
         eng.remat = remat
