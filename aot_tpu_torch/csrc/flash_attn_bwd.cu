@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), fp32.
+// Flash-attention backward for Hopper (sm_90a), fp32-accurate on the TF32
+// tensor cores.
 //
 // Replaces aot_tpu/ops/pallas/flash_attn_vjp.py:267 _flash_heads_bwd: the
 // TPU kernels _bwd_dq_kernel (:104) and _bwd_dkv_kernel (:148) behind the
@@ -19,136 +20,78 @@
 //   dQ = scale dS K;   dK = scale dS^T Q.
 // Keys at or beyond the live length get exact zeros in dK and dV and add
 // nothing to dQ; a row with no live key (lse -1e30) gives zeros. fp32 in,
-// out and accumulation; plain FMAs, no TF32.
+// out and accumulation; all five products (S, dP, dQ, dK, dV) run as three
+// TF32 tensor-core products each (3xTF32, tf32x3.cuh), as the TPU kernels
+// compute at Precision.HIGHEST (:41-43).
 //
-// Design (simple first). Three kernels, each a block of 256 threads
-// (16 x 16) that owns one 64-row tile of its output and loops over the
-// other side's 64-wide tiles inside the block, so no two blocks write the
-// same element: no atomics, and the gradients are the same from run to run.
-//   dq_kernel  block per (b*h, query tile), loops over the live key tiles
-//              (for a grid of fewer than two waves, as one video at h = 1
-//              gives, the key loop is split over `splits` blocks whose
-//              partials a last kernel adds in a fixed order);
-//   dk_kernel  block per (b*h, key tile), loops over the query tiles;
-//   dv_kernel  block per (b*h, key tile, dv column tile), loops over the
-//              query tiles.
-// (dq_kernel and dk_kernel are one template, `grad_qk_kernel`, with the
-// roles of rows and columns swapped.) Each block recomputes its 64 x 64
-// score tile from q and k in shared memory and P = exp(S - lse), as the TPU
-// kernels do. Why three and not the JAX split's two: at DeAOT's dv = 1024 a
-// 64-key fp32 dV accumulator is 256 KB, more than a block's 227 KB, and dK
-// needs dP = dO V^T summed over all of dv. So dV, which needs no dP, tiles
-// dv across the grid (a 32-, 64- or 128-column accumulator in registers),
-// while
-// dQ and dK take dP in a loop over 32-column chunks of dO and V staged
-// through shared memory, and never hold a dv-wide row. Each tile's partial
-// products are summed apart and folded into the accumulator once per tile
-// (on the forward, a per-key running fp32 sum over ~11,700 keys cost a
-// 2.8e-4 error). Shared memory: the row tile and the column tile of q/k (64 x
-// (d + 4) each), the two dP chunks (64 x 36 each) and the dS or P tile
-// (64 x 68): 169 KB at d = 256, 54 KB at AOT's d = 32.
+// Design. Blocks of 4 warps own one 64-row tile of an output (16 rows a
+// warp) and loop over the other side's tiles inside the block, so no two
+// blocks write the same element: no atomics, and two runs give the same
+// bits.
+//   grad_qk_kernel<dQ>  block per (b*h, query tile): S, P, dP, dS and
+//                       dQ += dS K over the live key tiles (for a grid of
+//                       fewer than two waves, as one video at h = 1 gives,
+//                       the key loop is split over `splits` blocks whose
+//                       partials sum_splits_kernel adds in split order);
+//                       for dv > 32 it also keeps P and dS in a scratch;
+//   grad_qk_kernel<dK>  then, for dv <= 32 (AOT's d = dv = 32), a block per
+//                       (b*h, key tile): S, P, dP, dS with rows and columns
+//                       swapped, dK += dS^T Q and dV += P^T dO together
+//                       over the query tiles;
+//   grad_t_kernel       or, for dv > 32 (DeAOT's dv = 1024), dV = P^T dO
+//                       and dK = scale dS^T Q from the kept P and dS, a
+//                       block per (b*h, key tile, 128 output columns): S
+//                       and dP are computed once.
+// The kept P and dS are bounded: the dQ kernel and grad_t_kernel run over
+// slabs of `slab` query rows (a multiple of 64, the wrapper's choice), one
+// slab after the other, and grad_t_kernel adds each slab's dV and dK to the
+// last in slab order.
+// dP = dO V^T is summed over dv in 32-column chunks staged through shared
+// memory, so no block holds a dv-wide row. The score tile, P, dP and dS
+// stay in the mma accumulator registers; P and dS enter the next product
+// as A fragments straight from them (tf32x3::a_from_acc). Every tile
+// (the column tile of q or k, the dv chunks of dO and v) is staged with
+// cp.async through a ring of two stages, so the next step's copies are in
+// flight while this step's products run.
+// Long sums are folded in fp32: the tensor core rounds its fp32
+// accumulator toward zero after every product, so a sum over thousands of
+// products in one accumulator drifts one way (dQ over 19,800 keys: ~1,900
+// mma steps). Each column tile's dQ (dK, dV) product, each dv chunk's dP
+// and each query tile's grad_t product is summed in an accumulator of its
+// own and added to the running one in fp32; for d > 32 the score's large
+// term is kept apart (tf32x3::mma3_apart), as the forward computes it. At
+// d = 256 the tile accumulators spill to local memory (no path runs it);
+// the d = 32 dQ kernel spills 12 bytes at three blocks a multiprocessor.
 //
 // What bounds it: arithmetic. At AOTT's training shape (B = 16, h = 8,
-// Lq = Lk = 900, d = dv = 32) the three kernels run ~53 GFLOP of fp32 FMAs
-// a call (S three times, dP twice, dQ, dK, dV once each), against the
-// card's ~67 TFLOP/s of fp32 outside the tensor cores; q, k, v and dO are
-// 7.4 MB a tensor and stay in L2. At DeAOTL's long-term shape (Lq = 900,
-// Lk = 19,800, d = 128, dv = 1024) dP dominates (36 GFLOP, twice) and the
-// dV kernel recomputes S once per column tile (8 tiles). Later work for
-// speed: tensor cores (TF32 or bf16 wgmma, as a declared precision mode),
-// fusing dK and dV where dv is small, and cp.async double buffering.
+// Lq = Lk = 900, d = dv = 32) the function is 33 GFLOP, 0.201 ms at the
+// card's 495 TFLOP/s of dense TF32 in 3xTF32 (165 TFLOP/s of fp32-accurate
+// products); the two kernels run 46 GFLOP (S and dP twice, dQ, dK, dV
+// once), 139 GFLOP of TF32 products, in ~1.6 ms on an H100 80GB HBM3 at
+// 700 W: as in the forward, the operand splits and fragment reads share
+// the issue slots with mma.sync, whose own peak there is 305 TFLOP/s of
+// TF32. q, k, v and dO are 7.4 MB a tensor and stay in L2. At DeAOTL's
+// long-term shape (Lq = 900, Lk = 19,800, d = 128, dv = 1024) the function
+// is 87 GFLOP (0.525 ms), dP and dV 36 GFLOP each; the two passes run
+// exactly that, in ~4.4 ms (a one-pass form, which computes dP twice and
+// S ten times, 164 GFLOP, took ~7.8 ms). wgmma with TMA is the next step.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kT = 64;           // rows and columns of a score tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kC = 32;           // dv chunk of the dP product
-constexpr int kCS = kC + 4;      // row stride of a dP chunk
-constexpr int kPS = kT + 4;      // row stride of the P / dS tile
+using namespace tf32x3;
+
+constexpr int kT = 64;           // rows of a block's output tile
+constexpr int kThreads = 128;    // 4 warps, 16 rows each
+constexpr int kCH = 32;          // dv chunk of the dP product
+constexpr int kLdX = kCH + 4;    // row stride of a dP chunk
 constexpr int kMaxD = 256;       // q/k channels per head
 constexpr float kNegInf = -1e30f;
 constexpr float kEmptyLse = -1e29f;  // lse below this: the row has no key
-
-// Stage rows [r0, r0 + kT) of a tile `width` floats wide (a multiple of 4)
-// into shared memory with row stride `ld_dst`, scaled by `mul`. Rows at or
-// beyond `r_end` and columns at or beyond `c_end` are zero. `src` points
-// at row 0, column 0 of the tile's columns; `ld` is the row stride.
-__device__ __forceinline__ void stage(float* dst, int ld_dst,
-                                      const float* src, long long ld, int r0,
-                                      int r_end, int width, int c_end,
-                                      float mul) {
-  const int w4 = width >> 2;
-  for (int i = threadIdx.x; i < kT * w4; i += kThreads) {
-    const int r = i / w4;
-    const int c = (i - r * w4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < r_end && c < c_end) {
-      x = *reinterpret_cast<const float4*>(src + (r0 + r) * ld + c);
-      x.x *= mul; x.y *= mul; x.z *= mul; x.w *= mul;
-    }
-    *reinterpret_cast<float4*>(dst + r * ld_dst + c) = x;
-  }
-}
-
-// acc[i][j] += sum_c a[ty + 16 i][c] * b[tx + 16 j][c], c < width
-__device__ __forceinline__ void dot_tile(float acc[4][4], const float* a,
-                                         int lda, const float* b, int ldb,
-                                         int width, int ty, int tx) {
-  for (int c = 0; c < width; c += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * lda + c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      y[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * ldb + c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float t = acc[i][j];
-        t = fmaf(x[i].x, y[j].x, t);
-        t = fmaf(x[i].y, y[j].y, t);
-        t = fmaf(x[i].z, y[j].z, t);
-        acc[i][j] = fmaf(x[i].w, y[j].w, t);
-      }
-  }
-}
-
-// acc[i][n] += sum_kk p[ty + 16 i][kk] * b[kk][tx + 16 n] over the kT
-// columns of the P / dS tile: one tile's products summed apart, then added
-// to the accumulator once. Columns at or beyond `ncols` are left alone.
-template <int NJ>
-__device__ __forceinline__ void fold_tile(float acc[4][NJ], const float* p,
-                                          const float* b, int ldb, int ncols,
-                                          int ty, int tx) {
-#pragma unroll
-  for (int n = 0; n < NJ; ++n) {
-    const int col = tx + 16 * n;
-    if (col >= ncols) continue;
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kk = 0; kk < kT; kk += 4) {
-      const float b0 = b[(kk + 0) * ldb + col];
-      const float b1 = b[(kk + 1) * ldb + col];
-      const float b2 = b[(kk + 2) * ldb + col];
-      const float b3 = b[(kk + 3) * ldb + col];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(p + (ty + 16 * i) * kPS + kk);
-        float t = part[i];
-        t = fmaf(w.x, b0, t);
-        t = fmaf(w.y, b1, t);
-        t = fmaf(w.z, b2, t);
-        part[i] = fmaf(w.w, b3, t);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][n] += part[i];
-  }
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const float* q;
@@ -163,10 +106,18 @@ struct Args {
   float* dv;
   float* dq_part;   // (splits, B, Lq, h*d) unscaled partial dQ, or null
   int heads, lq, lk, d, dv_w, valid_all;
-  int key_tiles_per_split;   // dq_kernel: key tiles of each blockIdx.z
+  int tiles_per_split;       // dQ: key tiles of each blockIdx.z
   long long split_stride;    // floats between two splits of dq_part
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
   float scale;
+  // dQ kernel of the two-pass backward: the slab's first query row and
+  // rows a slab, and P and dS of every (query of the slab, live key),
+  // B*h*slab rows of `lds` floats each, for the dK and dV products
+  int row0;
+  int slab;
+  float* p_out;
+  float* ds_out;
+  long long lds;
 };
 
 __device__ __forceinline__ int live_keys(const Args& a, int b) {
@@ -174,26 +125,111 @@ __device__ __forceinline__ int live_keys(const Args& a, int b) {
   return max(0, min(n, a.lk));
 }
 
-// KEY_ROWS false: dQ, rows are queries and the loop runs over key tiles.
-// KEY_ROWS true:  dK, rows are keys and the loop runs over query tiles.
-// NJ: output columns per thread (d <= 16 NJ).
-template <int NJ, bool KEY_ROWS>
-__global__ void __launch_bounds__(kThreads)
-grad_qk_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  const int ds = a.d + 4;
-  float* s_row = reinterpret_cast<float*>(smem4);   // kT x ds
-  float* s_col = s_row + kT * ds;                    // kT x ds
-  float* s_c0 = s_col + kT * ds;                     // kT x kCS
-  float* s_c1 = s_c0 + kT * kCS;                     // kT x kCS
-  float* s_p = s_c1 + kT * kCS;                      // kT x kPS
+template <int N>
+__device__ __forceinline__ void zero(float (*x)[4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+}
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+// acc += part, in fp32 (round to nearest), once per tile
+template <int N>
+__device__ __forceinline__ void fold(float (*acc)[4], const float (*part)[4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+// The column tile: 64 rows at AOT's d = 32, 32 above (shared memory).
+template <int D>
+constexpr int col_tile() { return D == 32 ? 64 : 32; }
+
+template <int D>
+struct QkTiles {
+  static constexpr int kBC = col_tile<D>();
+  static constexpr int kLd = D + 4;   // = 4 mod 32 words: conflict-free
+  static constexpr int kR = kT * kLd;
+  static constexpr int kC = kBC * kLd;
+  static constexpr int kXr = kT * kLdX;
+  static constexpr int kXc = kBC * kLdX;
+  // two stages of the column tile, its dv chunks and (dK) its lse and D
+  static constexpr size_t kSmem =
+      sizeof(float) * (kR + 2 * (kC + kXr + kXc + 2 * kBC));
+};
+
+// acc[n] += X_rows . C^T over `steps` (<= KS) 8-channel steps: A = rows of
+// `xr` (ld LDA, the warp's 16 rows), B(k = channel, n = column) = rows of
+// `xc` (ld LDB). APART: the large term goes to acc, the small ones to
+// small (tf32x3::mma3_apart).
+template <int NB, int KS, int LDA, int LDB, bool APART = false>
+__device__ __forceinline__ void rows_dot_cols(float (*acc)[4],
+                                              float (*small)[4],
+                                              const float* xr,
+                                              const float* xc, int steps,
+                                              int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    if (ks < steps) {
+      const float* pa = xr + g * LDA + ks * 8 + t;
+      const FragA fa = frag_a(pa[0], pa[8 * LDA], pa[4], pa[8 * LDA + 4]);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        const float* pb = xc + (n * 8 + g) * LDB + ks * 8 + t;
+        if constexpr (APART)
+          mma3_apart(acc[n], small[n], fa, frag_b(pb[0], pb[4]));
+        else
+          mma3(acc[n], fa, frag_b(pb[0], pb[4]));
+      }
+    }
+  }
+}
+
+// acc[n] += W . Y over the KB 8-column blocks of the score-shaped W (in
+// accumulator registers): B(k = column, n = channel) = rows 2t, 2t + 1 of
+// each 8-row block of `y` (ld LDB), channels n * 8 + g for n < `nblocks`.
+template <int KB, int NB, int LDB>
+__device__ __forceinline__ void scores_dot(float (*acc)[4],
+                                           const float (*w)[4], const float* y,
+                                           int nblocks, int g, int t) {
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    const FragA fa = a_from_acc(w[kb]);
+    const float* pb = y + (kb * 8 + 2 * t) * LDB + g;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      if (n < nblocks) mma3(acc[n], fa, frag_b(pb[n * 8], pb[LDB + n * 8]));
+  }
+}
+
+// KEY_ROWS false: dQ, rows are queries and the loop runs over key tiles.
+// KEY_ROWS true:  dK and dV (dv <= kCH, one chunk), rows are keys and the
+// loop runs over query tiles.
+template <bool KEY_ROWS, int D>
+__global__ void __launch_bounds__(kThreads, D == 32 ? 3 : 2)
+    grad_qk_kernel(Args a) {
+  using T = QkTiles<D>;
+  constexpr int kBC = T::kBC;
+  constexpr int kNC = kBC / 8;    // 8-column blocks of a score tile
+  constexpr int kND = D / 8;      // 8-channel blocks of q/k
+  constexpr int kNV = kCH / 8;    // 8-channel blocks of a dv chunk
+  constexpr bool kApart = D > 32; // the score's hi.hi term summed apart
+  extern __shared__ float4 smem4[];
+  float* s_r = reinterpret_cast<float*>(smem4);   // row tile (q or k)
+  float* s_c = s_r + T::kR;                        // column tile, 2 stages
+  float* s_xr = s_c + 2 * T::kC;                   // row side dv chunk, 2
+  float* s_xc = s_xr + 2 * T::kXr;                 // column side chunk, 2
+  float* s_lc = s_xc + 2 * T::kXc;                 // dK: columns' lse, 2
+  float* s_dc = s_lc + 2 * kBC;                    // dK: columns' D, 2
+
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
   const int bh = blockIdx.x;
   const int b = bh / a.heads;
   const int head = bh % a.heads;
-  const int r0 = blockIdx.y * kT;
+  const int r0 = a.row0 + blockIdx.y * kT;
   const int n_live = live_keys(a, b);
   const long long do_sl = (long long)a.heads * a.dv_w;
   const float* q_base = a.q + b * a.q_sb + (long long)head * a.d;
@@ -204,207 +240,345 @@ grad_qk_kernel(Args a) {
   const float* lse = a.lse + (long long)bh * a.lq;
   const float* delta = a.delta + (long long)bh * a.lq;
 
-  // rows: scaled q (dQ) or k (dK); the product with the other side's tile
-  // is the score S = (scale q) . k either way
   const int row_end = KEY_ROWS ? n_live : a.lq;
   const int col_end = KEY_ROWS ? a.lq : n_live;
-  stage(s_row, ds, KEY_ROWS ? k_base : q_base, KEY_ROWS ? a.k_sl : a.q_sl,
-        r0, row_end, a.d, a.d, KEY_ROWS ? 1.f : a.scale);
+  const float* r_src = KEY_ROWS ? k_base : q_base;
+  const long long r_ld = KEY_ROWS ? a.k_sl : a.q_sl;
+  const float* c_src = KEY_ROWS ? q_base : k_base;
+  const long long c_ld = KEY_ROWS ? a.q_sl : a.k_sl;
+  const float* xr_src = KEY_ROWS ? v_base : do_base;   // dP rows
+  const long long xr_ld = KEY_ROWS ? a.v_sl : do_sl;
+  const float* xc_src = KEY_ROWS ? do_base : v_base;   // dP columns
+  const long long xc_ld = KEY_ROWS ? do_sl : a.v_sl;
 
-  // dQ: each row's lse and D, read once
-  float lse_r[4], dd_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    lse_r[i] = (!KEY_ROWS && r < a.lq) ? lse[r] : kNegInf;
-    dd_r[i] = (!KEY_ROWS && r < a.lq) ? delta[r] : 0.f;
-  }
-
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < NJ; ++n) acc[i][n] = 0.f;
-
-  // a dK block of dead keys skips the loop and writes zeros; a dQ block
-  // takes its split's range of key tiles
-  int loop_begin = 0, loop_end = col_end;
-  if (KEY_ROWS && r0 >= n_live) loop_end = 0;
+  // the loop's column range: a dK block of dead keys skips it and writes
+  // zeros; a dQ block takes its split's range of key tiles
+  int c_begin = 0, c_end = col_end;
+  if (KEY_ROWS && r0 >= n_live) c_end = 0;
   if (!KEY_ROWS) {
-    loop_begin = blockIdx.z * a.key_tiles_per_split * kT;
-    loop_end = min(col_end, loop_begin + a.key_tiles_per_split * kT);
+    c_begin = blockIdx.z * a.tiles_per_split * kBC;
+    c_end = min(col_end, c_begin + a.tiles_per_split * kBC);
   }
-  for (int c0 = loop_begin; c0 < loop_end; c0 += kT) {
-    __syncthreads();   // the last tile's readers are done; row tile stored
-    stage(s_col, ds, KEY_ROWS ? q_base : k_base, KEY_ROWS ? a.q_sl : a.k_sl,
-          c0, col_end, a.d, a.d, KEY_ROWS ? a.scale : 1.f);
-    __syncthreads();
+  const int n_ct = c_end > c_begin ? (c_end - c_begin + kBC - 1) / kBC : 0;
+  const int n_ch = (a.dv_w + kCH - 1) / kCH;
+  const int n_steps = n_ct * n_ch;
 
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
-    dot_tile(p, s_row, ds, s_col, ds, a.d, ty, tx);
-
-    float lse_c[4], dd_c[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      lse_c[j] = (KEY_ROWS && c < a.lq) ? lse[c] : kNegInf;
-      dd_c[j] = (KEY_ROWS && c < a.lq) ? delta[c] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = r0 + ty + 16 * i;
-        const int c = c0 + tx + 16 * j;
-        const int qi = KEY_ROWS ? c : r;
-        const int ki = KEY_ROWS ? r : c;
-        const float l = KEY_ROWS ? lse_c[j] : lse_r[i];
-        const bool live = qi < a.lq && ki < n_live && l > kEmptyLse;
-        p[i][j] = live ? expf(p[i][j] - l) : 0.f;
+  stage<kT, D, T::kLd, kThreads>(s_r, r_src + r0 * r_ld, r_ld, row_end - r0,
+                                 a.d);
+  auto load_step = [&](int s) {   // column tile s / n_ch, chunk s % n_ch
+    const int ct = s / n_ch;
+    const int ch = s - ct * n_ch;
+    const int c0 = c_begin + ct * kBC;
+    if (ch == 0) {
+      stage<kBC, D, T::kLd, kThreads>(s_c + (ct & 1) * T::kC, c_src + c0 * c_ld,
+                                      c_ld, c_end - c0, a.d);
+      if (KEY_ROWS) {
+        stage_vec<kBC, kThreads>(s_lc + (ct & 1) * kBC, lse + c0, c_end - c0);
+        stage_vec<kBC, kThreads>(s_dc + (ct & 1) * kBC, delta + c0,
+                                 c_end - c0);
       }
-
-    // dP over dv in chunks: rows x cols of dO . v (dQ) or v . dO (dK)
-    float dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] = 0.f;
-    for (int e0 = 0; e0 < a.dv_w; e0 += kC) {
-      __syncthreads();
-      const int e_end = a.dv_w - e0;
-      stage(s_c0, kCS, (KEY_ROWS ? v_base : do_base) + e0,
-            KEY_ROWS ? a.v_sl : do_sl, r0, row_end, kC, e_end, 1.f);
-      stage(s_c1, kCS, (KEY_ROWS ? do_base : v_base) + e0,
-            KEY_ROWS ? do_sl : a.v_sl, c0, col_end, kC, e_end, 1.f);
-      __syncthreads();
-      dot_tile(dp, s_c0, kCS, s_c1, kCS, kC, ty, tx);
     }
+    const int e0 = ch * kCH;
+    if (n_ch > 1 || s == 0)   // one chunk: the row side is staged once
+      stage<kT, kCH, kLdX, kThreads>(s_xr + (s & 1) * T::kXr,
+                                     xr_src + r0 * xr_ld + e0, xr_ld,
+                                     row_end - r0, a.dv_w - e0);
+    stage<kBC, kCH, kLdX, kThreads>(s_xc + (s & 1) * T::kXc,
+                                    xc_src + c0 * xc_ld + e0, xc_ld,
+                                    c_end - c0, a.dv_w - e0);
+  };
+  if (n_steps > 0) load_step(0);
+  cp_async_commit();
 
-    // dS = P o (dP - D), stored for the fold
+  const bool active = r0 + warp * 16 < row_end;   // warp-uniform
+  const int d_steps = (a.d + 7) / 8;
+  const int x_steps = min(kNV, (a.dv_w + 7) / 8);
+  const float scale2 = a.scale * kLog2e;
+  // dQ: each row's lse and D, read once
+  float lse2_r[2] = {0.f, 0.f}, dd_r[2] = {0.f, 0.f};
+  bool live_r[2] = {false, false};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float dd = KEY_ROWS ? dd_c[j] : dd_r[i];
-        s_p[(ty + 16 * i) * kPS + tx + 16 * j] = p[i][j] * (dp[i][j] - dd);
-      }
-    __syncthreads();
-    // dQ += dS K (k tile unscaled) or dK += dS^T (scale q) (q tile scaled)
-    fold_tile<NJ>(acc, s_p, s_col, ds, a.d, ty, tx);
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + warp * 16 + g + 8 * r;
+    if (!KEY_ROWS && row < a.lq) {
+      lse2_r[r] = lse[row] * kLog2e;
+      dd_r[r] = delta[row];
+      live_r[r] = lse[row] > kEmptyLse;
+    }
+    if (KEY_ROWS) live_r[r] = row < n_live;
   }
+
+  float acc[kND][4], accv[kNV][4], p[kNC][4], dp[kNC][4];
+  zero<kND>(acc);
+  zero<kNV>(accv);
+
+  for (int s = 0; s < n_steps; ++s) {
+    if (s + 1 < n_steps) load_step(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int ct = s / n_ch;
+    const int ch = s - ct * n_ch;
+    const int c0 = c_begin + ct * kBC;
+    const float* tc = s_c + (ct & 1) * T::kC;
+    const float* xc = s_xc + (s & 1) * T::kXc;
+    if (active) {
+      if (ch == 0) {
+        // P = exp(scale S - lse) over the live (query, key) pairs
+        float p_small[kApart ? kNC : 1][4];
+        zero<kNC>(p);
+        zero<kNC>(dp);
+        if constexpr (kApart) zero<kNC>(p_small);
+        rows_dot_cols<kNC, kND, T::kLd, T::kLd, kApart>(
+            p, p_small, s_r + warp * 16 * T::kLd, tc, d_steps, g, t);
+        if constexpr (kApart) fold<kNC>(p, p_small);
+#pragma unroll
+        for (int n = 0; n < kNC; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cc = n * 8 + 2 * t + e;
+            float l2 = 0.f;
+            bool live = c0 + cc < c_end;
+            if (KEY_ROWS) {
+              const float l = s_lc[(ct & 1) * kBC + cc];
+              live = live && l > kEmptyLse;
+              l2 = l * kLog2e;
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float sub = KEY_ROWS ? l2 : lse2_r[r];
+              p[n][2 * r + e] = (live && live_r[r])
+                  ? exp2f(fmaf(p[n][2 * r + e], scale2, -sub)) : 0.f;
+            }
+          }
+      }
+      // dP += X_rows . X_cols^T over this dv chunk; dK's single chunk goes
+      // straight into dP, each of dQ's chunks (32 at dv = 1024) is summed
+      // apart and added in fp32
+      const float* xr =
+          s_xr + (n_ch > 1 ? s & 1 : 0) * T::kXr + warp * 16 * kLdX;
+      if constexpr (KEY_ROWS) {
+        rows_dot_cols<kNC, kNV, kLdX, kLdX>(dp, nullptr, xr, xc, x_steps, g,
+                                            t);
+      } else {
+        float x[kNC][4];
+        zero<kNC>(x);
+        rows_dot_cols<kNC, kNV, kLdX, kLdX>(x, nullptr, xr, xc, x_steps, g,
+                                            t);
+        fold<kNC>(dp, x);
+      }
+      if (ch == n_ch - 1) {
+        // dS = P o (dP - D), in place of dP
+#pragma unroll
+        for (int n = 0; n < kNC; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dd_c =
+                KEY_ROWS ? s_dc[(ct & 1) * kBC + n * 8 + 2 * t + e] : 0.f;
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              dp[n][2 * r + e] =
+                  p[n][2 * r + e] * (dp[n][2 * r + e] - (KEY_ROWS ? dd_c : dd_r[r]));
+          }
+        if (!KEY_ROWS && a.ds_out != nullptr) {
+          // keys even, split bounds a multiple of the tile: key + 1 < lds
+          const int row0 = r0 + warp * 16 + g;
+          const long long base =
+              ((long long)bh * a.slab + row0 - a.row0) * a.lds;
+#pragma unroll
+          for (int n = 0; n < kNC; ++n) {
+            const int key = c0 + n * 8 + 2 * t;
+            if (key >= c_end) continue;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              if (row0 + 8 * r >= a.lq) continue;
+              const long long at = base + 8 * r * a.lds + key;
+              *reinterpret_cast<float2*>(a.p_out + at) =
+                  make_float2(p[n][2 * r], p[n][2 * r + 1]);
+              *reinterpret_cast<float2*>(a.ds_out + at) =
+                  make_float2(dp[n][2 * r], dp[n][2 * r + 1]);
+            }
+          }
+        }
+        // dQ += dS K, or dK += dS^T Q (scaled at the end), and dV += P^T dO
+        // (the chunk is all of dv): this tile's products summed apart
+        float part[kND][4];
+        zero<kND>(part);
+        scores_dot<kNC, kND, T::kLd>(part, dp, tc, d_steps, g, t);
+        fold<kND>(acc, part);
+        if constexpr (KEY_ROWS) {
+          float partv[kNV][4];
+          zero<kNV>(partv);
+          scores_dot<kNC, kNV, kLdX>(partv, p, xc, x_steps, g, t);
+          fold<kNV>(accv, partv);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this step's stages
+  }
+  cp_async_wait<0>();
 
   // dQ of a split launch: the unscaled partial of this split's keys
   const bool partial = !KEY_ROWS && a.dq_part != nullptr;
-  const float out_mul = (KEY_ROWS || partial) ? 1.f : a.scale;
+  const float out_mul = partial ? 1.f : a.scale;
   const int n_rows = KEY_ROWS ? a.lk : a.lq;
   float* out = KEY_ROWS ? a.dk
                : partial ? a.dq_part + blockIdx.z * a.split_stride
-               : a.dq;
+                         : a.dq;
   const long long o_stride = (long long)a.heads * a.d;
+  const long long v_stride = (long long)a.heads * a.dv_w;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= n_rows) continue;
-    float* o_row = out + ((long long)b * n_rows + r) * o_stride +
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + warp * 16 + g + 8 * r;
+    if (row >= n_rows) continue;
+    float* o_row = out + ((long long)b * n_rows + row) * o_stride +
                    (long long)head * a.d;
 #pragma unroll
-    for (int n = 0; n < NJ; ++n) {
-      const int col = tx + 16 * n;
-      if (col < a.d) o_row[col] = acc[i][n] * out_mul;
+    for (int n = 0; n < kND; ++n) {
+      const int col = n * 8 + 2 * t;   // d % 4 == 0: both columns or none
+      if (col < a.d)
+        *reinterpret_cast<float2*>(o_row + col) =
+            make_float2(acc[n][2 * r] * out_mul, acc[n][2 * r + 1] * out_mul);
+    }
+    if constexpr (KEY_ROWS) {
+      float* v_row = a.dv + ((long long)b * a.lk + row) * v_stride +
+                     (long long)head * a.dv_w;
+#pragma unroll
+      for (int n = 0; n < kNV; ++n) {
+        const int col = n * 8 + 2 * t;
+        if (col < a.dv_w)
+          *reinterpret_cast<float2*>(v_row + col) =
+              make_float2(accv[n][2 * r], accv[n][2 * r + 1]);
+      }
     }
   }
 }
 
-// dV for one (b*h, key tile, column tile of 16 NJ value columns).
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-grad_v_kernel(Args a) {
-  constexpr int kBV = 16 * NJ;
-  constexpr int kVS = kBV + 4;
-  extern __shared__ float4 smem4[];
-  const int ds = a.d + 4;
-  float* s_k = reinterpret_cast<float*>(smem4);   // kT x ds
-  float* s_q = s_k + kT * ds;                      // kT x ds
-  float* s_do = s_q + kT * ds;                     // kT x kVS
-  float* s_p = s_do + kT * kVS;                    // kT x kPS
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+// Second pass of the two-pass backward (dv > 32, DeAOT's dv = 1024): the
+// dQ kernel has written P and dS of a slab of queries, so dV += P^T dO and
+// dK += scale dS^T Q over the slab are products with no recompute of S or
+// dP. A block per (b*h, 64-key tile, 128-column tile of the output) loops
+// over the slab's 32-query tiles: X (P or dS, queries x keys) and Y (dO or
+// q, queries x columns) go through a cp.async ring, X enters as the
+// transposed A operand (keys as rows), and each tile's product is folded
+// into the output in fp32. The first slab writes the output, each later one
+// adds to it. Keys at or beyond the live length get zeros.
+struct TArgs {
+  const float* x;     // P or dS: B*h*x_rows rows of lds floats
+  const float* y;     // dO or q, at the slab's first query row
+  float* out;         // dV or dK: (B, Lk, h*ncols)
+  const int* valid;
+  long long lds, y_sb, y_sl;
+  int heads, lq, lk, ncols, valid_all;   // lq: the slab's query rows
+  float mul;          // 1 for dV, scale for dK
+  int x_rows;         // rows of X a b*h (the slab)
+  int accumulate;     // 0: out = the slab's product; 1: out += it
+};
+
+constexpr int kTQ = 32;            // queries a tile
+constexpr int kTCols = 128;        // output columns a block
+constexpr int kLdTX = kT + 8;      // = 8 mod 32: transposed A reads
+constexpr int kLdTY = kTCols + 8;  // = 8 mod 32: B reads (rows t, t + 4)
+constexpr int kTX = kTQ * kLdTX;
+constexpr int kTY = kTQ * kLdTY;
+constexpr size_t kTSmem = sizeof(float) * 2 * (kTX + kTY);
+
+__global__ void __launch_bounds__(kThreads, 2) grad_t_kernel(TArgs a) {
+  constexpr int kNV = kTCols / 8;
+  extern __shared__ float4 smem4[];
+  float* s_x = reinterpret_cast<float*>(smem4);   // two stages
+  float* s_y = s_x + 2 * kTX;                      // two stages
+
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
   const int bh = blockIdx.x;
   const int b = bh / a.heads;
   const int head = bh % a.heads;
   const int k0 = blockIdx.y * kT;
-  const int v0 = blockIdx.z * kBV;
-  const int n_live = live_keys(a, b);
-  const long long do_sl = (long long)a.heads * a.dv_w;
-  const float* q_base = a.q + b * a.q_sb + (long long)head * a.d;
-  const float* k_base = a.k + b * a.k_sb + (long long)head * a.d;
-  const float* do_base = a.dout + (long long)b * a.lq * do_sl +
-                         (long long)head * a.dv_w + v0;
-  const float* lse = a.lse + (long long)bh * a.lq;
+  const int c0 = blockIdx.z * kTCols;
+  int n_live = a.valid != nullptr ? a.valid[b] : a.valid_all;
+  n_live = max(0, min(n_live, a.lk));
+  const int n_tiles = k0 >= n_live ? 0 : (a.lq + kTQ - 1) / kTQ;
+  const float* x_base = a.x + (long long)bh * a.x_rows * a.lds + k0;
+  const float* y_base = a.y + b * a.y_sb + (long long)head * a.ncols + c0;
+  auto load_tile = [&](int i) {
+    const int q0 = i * kTQ;
+    stage<kTQ, kT, kLdTX, kThreads>(s_x + (i & 1) * kTX, x_base + q0 * a.lds,
+                                    a.lds, a.lq - q0, (int)(a.lds - k0));
+    stage<kTQ, kTCols, kLdTY, kThreads>(s_y + (i & 1) * kTY,
+                                        y_base + q0 * a.y_sl, a.y_sl,
+                                        a.lq - q0, a.ncols - c0);
+  };
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
 
-  stage(s_k, ds, k_base, a.k_sl, k0, n_live, a.d, a.d, 1.f);
+  const bool active = k0 + warp * 16 < n_live;
+  const int nblocks = min(kNV, (a.ncols - c0 + 7) / 8);
+  float acc[kNV][4];
+  zero<kNV>(acc);
 
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < NJ; ++n) acc[i][n] = 0.f;
-
-  const int loop_end = k0 >= n_live ? 0 : a.lq;
-  for (int q0 = 0; q0 < loop_end; q0 += kT) {
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_tile(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    stage(s_q, ds, q_base, a.q_sl, q0, a.lq, a.d, a.d, a.scale);
-    stage(s_do, kVS, do_base, do_sl, q0, a.lq, kBV, a.dv_w - v0, 1.f);
-    __syncthreads();
-
-    float p[4][4];
+    if (active) {
+      float part[kNV][4];
+      zero<kNV>(part);
+      const float* tx = s_x + (i & 1) * kTX + t * kLdTX + warp * 16 + g;
+      const float* ty = s_y + (i & 1) * kTY + t * kLdTY + g;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int kb = 0; kb < kTQ / 8; ++kb) {
+        const float* px = tx + kb * 8 * kLdTX;   // X[query][key], A = X^T
+        const FragA fa = frag_a(px[0], px[8], px[4 * kLdTX], px[4 * kLdTX + 8]);
+        const float* py = ty + kb * 8 * kLdTY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
-    dot_tile(p, s_k, ds, s_q, ds, a.d, ty, tx);   // rows keys, cols queries
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qi = q0 + tx + 16 * j;
-      const float l = qi < a.lq ? lse[qi] : kNegInf;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool live = qi < a.lq && k0 + ty + 16 * i < n_live &&
-                          l > kEmptyLse;
-        s_p[(ty + 16 * i) * kPS + tx + 16 * j] =
-            live ? expf(p[i][j] - l) : 0.f;
+        for (int n = 0; n < kNV; ++n)
+          if (n < nblocks)
+            mma3(part[n], fa, frag_b(py[n * 8], py[4 * kLdTY + n * 8]));
       }
+      fold<kNV>(acc, part);
     }
     __syncthreads();
-    fold_tile<NJ>(acc, s_p, s_do, kVS, kBV, ty, tx);   // dV += P^T dO
   }
+  cp_async_wait<0>();
 
-  const long long o_stride = (long long)a.heads * a.dv_w;
+  const long long o_stride = (long long)a.heads * a.ncols;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= a.lk) continue;
-    float* o_row = a.dv + ((long long)b * a.lk + r) * o_stride +
-                   (long long)head * a.dv_w + v0;
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + warp * 16 + g + 8 * r;
+    if (row >= a.lk) continue;
+    const bool live = row < n_live;   // dead keys: zeros, not what X held
+    float* o_row = a.out + ((long long)b * a.lk + row) * o_stride +
+                   (long long)head * a.ncols + c0;
 #pragma unroll
-    for (int n = 0; n < NJ; ++n) {
-      const int col = tx + 16 * n;
-      if (v0 + col < a.dv_w) o_row[col] = acc[i][n];
+    for (int n = 0; n < kNV; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (c0 + col < a.ncols) {
+        float2* o = reinterpret_cast<float2*>(o_row + col);
+        float2 val = make_float2(0.f, 0.f);
+        if (live) {
+          val = make_float2(acc[n][2 * r] * a.mul, acc[n][2 * r + 1] * a.mul);
+          if (a.accumulate) {
+            const float2 old = *o;
+            val.x += old.x;
+            val.y += old.y;
+          }
+        }
+        *o = val;
+      }
     }
   }
 }
 
 // dq = scale * sum over splits of dq_part, in split order (deterministic)
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 sum_splits_kernel(const float* __restrict__ part, float* __restrict__ dq,
                   long long n, int splits, float scale) {
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
     float t = 0.f;
     for (int s = 0; s < splits; ++s) t += part[s * n + i];
     dq[i] = t * scale;
@@ -421,79 +595,108 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-template <bool KEY_ROWS>
-int launch_qk(const Args& a, int batch, int splits, cudaStream_t stream) {
-  const int rows = KEY_ROWS ? a.lk : a.lq;
-  const dim3 grid(batch * a.heads, (rows + kT - 1) / kT,
-                  KEY_ROWS ? 1 : splits);
-  const size_t smem = sizeof(float) * (size_t)(2 * kT * (a.d + 4) +
-                                               2 * kT * kCS + kT * kPS);
-  if (a.d <= 32)
-    return launch(grad_qk_kernel<2, KEY_ROWS>, grid, smem, stream, a);
-  if (a.d <= 64)
-    return launch(grad_qk_kernel<4, KEY_ROWS>, grid, smem, stream, a);
-  if (a.d <= 128)
-    return launch(grad_qk_kernel<8, KEY_ROWS>, grid, smem, stream, a);
-  return launch(grad_qk_kernel<16, KEY_ROWS>, grid, smem, stream, a);
+int launch_t(dim3 grid, cudaStream_t stream, const TArgs& a) {
+  cudaError_t err = cudaFuncSetAttribute(
+      grad_t_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kTSmem);
+  if (err != cudaSuccess) return (int)err;
+  grad_t_kernel<<<grid, kThreads, kTSmem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-template <int NJ>
-int launch_v(const Args& a, int batch, cudaStream_t stream) {
-  constexpr int kBV = 16 * NJ;
-  const dim3 grid(batch * a.heads, (a.lk + kT - 1) / kT,
-                  (a.dv_w + kBV - 1) / kBV);
-  const size_t smem = sizeof(float) * (size_t)(2 * kT * (a.d + 4) +
-                                               kT * (kBV + 4) + kT * kPS);
-  return launch(grad_v_kernel<NJ>, grid, smem, stream, a);
+template <int D>
+int launch_d(const Args& a, int batch, int splits, cudaStream_t stream) {
+  const int bh = batch * a.heads;
+  const int key_tiles = (a.lk + kT - 1) / kT;
+  constexpr size_t qk_smem = QkTiles<D>::kSmem;
+  if (a.ds_out == nullptr) {   // dv <= kCH: dQ, then dK and dV together
+    const dim3 q_grid(bh, (a.lq + kT - 1) / kT, splits);
+    int err = launch(grad_qk_kernel<false, D>, q_grid, qk_smem, stream, a);
+    if (err != 0) return err;
+    return launch(grad_qk_kernel<true, D>, dim3(bh, key_tiles, 1), qk_smem,
+                  stream, a);
+  }
+  // two passes, slab by slab: dQ with P and dS kept, then dV and dK
+  const long long do_sl = (long long)a.heads * a.dv_w;
+  int err = 0;
+  for (int r0 = 0; r0 < a.lq && err == 0; r0 += a.slab) {
+    Args s = a;
+    s.row0 = r0;
+    const int rows = a.lq - r0 < a.slab ? a.lq - r0 : a.slab;
+    const int more = r0 > 0;
+    err = launch(grad_qk_kernel<false, D>,
+                 dim3(bh, (rows + kT - 1) / kT, splits), qk_smem, stream, s);
+    if (err != 0) break;
+    const TArgs tv{a.p_out, a.dout + r0 * do_sl, a.dv, a.valid, a.lds,
+                   (long long)a.lq * do_sl, do_sl, a.heads, rows, a.lk,
+                   a.dv_w, a.valid_all, 1.f, a.slab, more};
+    err = launch_t(dim3(bh, key_tiles, (a.dv_w + kTCols - 1) / kTCols),
+                   stream, tv);
+    if (err != 0) break;
+    const TArgs td{a.ds_out, a.q + r0 * a.q_sl, a.dk, a.valid, a.lds,
+                   a.q_sb, a.q_sl, a.heads, rows, a.lk, a.d, a.valid_all,
+                   a.scale, a.slab, more};
+    err = launch_t(dim3(bh, key_tiles, (a.d + kTCols - 1) / kTCols), stream,
+                   td);
+  }
+  return err;
 }
 
 }  // namespace
 
 // Plain C entry point, bound from Python with ctypes. Strides are in floats;
 // every stride and pointer must be 16-byte aligned (the wrapper checks).
-// `splits` > 1 splits dq_kernel's key loop over that many blocks a query
-// tile, for grids too small to fill the card (one video at h = 1): each
-// writes its partial into `dq_part` (splits x B x Lq x h*d floats, which
-// the caller allocates) and sum_splits_kernel adds them in order. Launches
-// the kernels on `stream` in order and returns the first non-zero
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a shape
-// it does not take; allocates nothing. Every output element is written
-// (zeros where no live key reaches it).
+// `splits` > 1 splits the dQ kernel's key loop over that many blocks a
+// query tile, for grids too small to fill the card (one video at h = 1):
+// each writes its partial into `dq_part` (splits x B x Lq x h*d floats,
+// which the caller allocates) and sum_splits_kernel adds them in order.
+// For dv > 32 the two-pass form runs over slabs of `slab` query rows (a
+// multiple of 64): `scratch` (2 x B*h*slab rows of Lk rounded up to 32
+// floats) takes the slab's P and dS from the dQ kernel, and grad_t_kernel
+// computes dV and dK from them; for dv <= 32 `scratch` and `slab` are not
+// read. Launches the kernels on `stream` in order and returns the first
+// non-zero cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
+// a shape it does not take; allocates nothing. Every output element is
+// written (zeros where no live key reaches it).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* valid, const void* dout,
                               const void* lse, const void* delta, void* dq,
                               void* dk, void* dv, void* dq_part, int splits,
-                              int batch, int heads, int lq, int lk, int d,
-                              int dv_w, int valid_all, long long q_sb,
-                              long long q_sl, long long k_sb, long long k_sl,
-                              long long v_sb, long long v_sl, float scale,
-                              void* stream) {
+                              void* scratch, int slab, int batch, int heads,
+                              int lq, int lk, int d, int dv_w, int valid_all,
+                              long long q_sb, long long q_sl, long long k_sb,
+                              long long k_sl, long long v_sb, long long v_sl,
+                              float scale, void* stream) {
+  const bool two_pass = dv_w > kCH;
   if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || d < 4 || d > kMaxD ||
       d % 4 != 0 || dv_w < 4 || dv_w % 4 != 0 || splits < 1 ||
       (splits > 1) != (dq_part != nullptr) ||
+      (two_pass && (scratch == nullptr || slab < kT || slab % kT != 0)) ||
       (q_sb | q_sl | k_sb | k_sl | v_sb | v_sl) % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int key_tiles = (lk + kT - 1) / kT;
+  const int bc = d <= 32 ? 64 : 32;   // col_tile<D>()
+  const int key_tiles = (lk + bc - 1) / bc;
+  const long long lds = (lk + 31) / 32 * 32;
+  float* p_out = two_pass ? (float*)scratch : nullptr;
+  float* ds_out =
+      two_pass ? p_out + (long long)batch * heads * slab * lds : nullptr;
   Args a{(const float*)q, (const float*)k, (const float*)v,
          (const int*)valid, (const float*)dout, (const float*)lse,
          (const float*)delta, (float*)dq, (float*)dk, (float*)dv,
          (float*)dq_part, heads, lq, lk, d, dv_w, valid_all,
          (key_tiles + splits - 1) / splits,
          (long long)batch * lq * heads * d,
-         q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale};
+         q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale, 0, slab, p_out, ds_out,
+         lds};
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_qk<false>(a, batch, splits, s);
-  if (err != 0) return err;
-  err = launch_qk<true>(a, batch, 1, s);
-  if (err != 0) return err;
-  err = dv_w <= 32 ? launch_v<2>(a, batch, s)
-      : dv_w <= 64 ? launch_v<4>(a, batch, s) : launch_v<8>(a, batch, s);
+  int err = d <= 32 ? launch_d<32>(a, batch, splits, s)
+          : d <= 128 ? launch_d<128>(a, batch, splits, s)
+                     : launch_d<256>(a, batch, splits, s);
   if (err != 0 || splits == 1) return err;
   const long long n = (long long)batch * lq * heads * d;
-  const int blocks = (int)((n + kThreads - 1) / kThreads < 1024
-                               ? (n + kThreads - 1) / kThreads : 1024);
-  sum_splits_kernel<<<blocks, kThreads, 0, s>>>((const float*)dq_part,
+  const long long blocks = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
+  sum_splits_kernel<<<(int)blocks, 256, 0, s>>>((const float*)dq_part,
                                                 (float*)dq, n, splits, scale);
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,10 @@ with a plain C interface, loaded with ctypes.
 
 Each library is compiled at first use with nvcc for sm_90a into
 `build/aot_tpu_torch/` at the repository root, keyed by a hash of its
-source and flags, so a changed source rebuilds and an unchanged one loads
-at once. Nothing here runs at import time: the CPU tests import the
-package on machines without nvcc.
+source, the csrc/ headers it includes and the flags, so a changed source
+or header rebuilds what includes it and
+an unchanged one loads at once. Nothing here runs at import time: the CPU
+tests import the package on machines without nvcc.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,6 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "aot_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.MULTILINE)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}   # name -> nvcc/ptxas output of this process
@@ -46,7 +50,11 @@ def build(*names: str) -> List[Path]:
     outs, jobs = [], []
     for name in names:
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
+        text = src.read_bytes()
+        # the csrc/ headers the source includes are part of its key
+        headers = b"".join((CSRC / h).read_bytes()
+                           for h in _INCLUDE.findall(text.decode()))
+        digest = hashlib.sha256(text + headers
                                 + " ".join(NVCC_FLAGS).encode())
         out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
         outs.append(out)

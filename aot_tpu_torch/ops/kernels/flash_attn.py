@@ -9,7 +9,9 @@ ops/attention.py `use_flash`.
   flash_attention        entry point: a CPU tensor takes the plain version,
                          a CUDA tensor launches the kernel or raises — there
                          is no fallback
-  flash_attention_cuda   the kernel wrapper (counts LAUNCHES)
+  flash_attention_cuda   the kernel wrapper (counts LAUNCHES: one per call,
+                         which runs the kernel's passes: the scores and
+                         P V for dv > 128, and the merge of key splits)
   flash_attention_plain  the same function in plain PyTorch: a masked
                          softmax over the live keys
   flash_attention_train  the differentiable form (the `FlashAttention`
@@ -35,6 +37,15 @@ from aot_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30
 MAX_D = 256       # q/k channels per head (csrc/flash_attn_fwd.cu kMaxD)
+_TILE_Q = 64      # queries a block (csrc/flash_attn_fwd.cu kBQ)
+# Floats of scores (forward) or of P and of dS each (backward) that the
+# two-pass forms keep at once, 256 MB: they run over slabs of query rows
+# that fit it. A memory bound, not a route: every width above one value
+# tile takes the two passes. A 465x465 DeAOTL read (B*h = 1, Lq = 900,
+# Lk <= 19,800) fits one slab; a 1080p read (Lq = 7,232, Lk = 14,464)
+# takes two, of 4,608 and 2,624 rows, at the 900-row read's time a
+# (query, key) pair (chip_smoke.py phase 3).
+SLAB_FLOATS = 1 << 26
 
 ValidLen = Union[None, int, torch.Tensor]
 
@@ -89,11 +100,60 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_fwd")
     fn = lib.flash_attn_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                        + [ctypes.c_longlong] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def _splits(blocks: int, slots: int, most: int) -> int:
+    """Key splits that bring a grid of `blocks` toward `slots` (the blocks
+    the card holds at once) without passing it: 1 from `slots` on, at most
+    `most` (one key tile a split)."""
+    return 1 if blocks >= slots else max(1, min(most, slots // blocks))
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def slab_rows(bh: int, lq: int, lk: int) -> int:
+    """Query rows a slab of the two-pass forms: as many 64-row tiles as
+    keep B*h*rows*lds floats within SLAB_FLOATS (at least one tile), and
+    no more than Lq needs."""
+    lds = -(-lk // 32) * 32
+    rows = max(_TILE_Q, SLAB_FLOATS // (bh * lds) // _TILE_Q * _TILE_Q)
+    return min(rows, -(-lq // _TILE_Q) * _TILE_Q)
+
+
+def fwd_plan(b: int, lq: int, lk: int, num_heads: int, dv: int,
+             sms: int) -> Tuple[int, int, int, int]:
+    """(splits, score_splits, slab, scratch floats) of a forward launch
+    (csrc/flash_attn_fwd.cu; 64 queries a block) on a card of `sms`
+    streaming multiprocessors. Up to dv = 128 one pass: a block per query
+    tile takes all of dv, two a multiprocessor, the key loop split across
+    blocks where the grid is under those two waves (score_splits and slab
+    0; scratch for the splits' out and lse). Above, two passes over slabs
+    of query rows (slab_rows): the scores once and then P V over
+    128-column value tiles, each pass's key loop split to fill two blocks a
+    multiprocessor (score_splits, splits); scratch for a slab's scores, the
+    row statistics and the output's splits."""
+    h = num_heads
+    if dv > 128:
+        slab = slab_rows(b * h, lq, lk)
+        tiles = -(-min(slab, lq) // _TILE_Q)
+        score_splits = _splits(b * h * tiles, 2 * sms, -(-lk // 64))
+        splits = _splits(b * h * tiles * -(-dv // 128), 2 * sms,
+                         -(-lk // 32))
+        scratch = (b * h * slab * (-(-lk // 32) * 32)
+                   + 2 * score_splits * b * h * lq
+                   + (splits * b * lq * h * dv if splits > 1 else 0))
+        return splits, score_splits, slab, scratch
+    splits = _splits(b * h * -(-lq // _TILE_Q), 2 * sms, -(-lk // 64))
+    return splits, 0, 0, (splits * (b * lq * h * dv + b * h * lq)
+                          if splits > 1 else 0)
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -150,11 +210,16 @@ def flash_attention_cuda(
     elif valid_len is not None:
         valid_all = max(0, min(int(valid_len), lk))
 
+    splits, score_splits, slab, scratch = fwd_plan(b, lq, lk, h, dv,
+                                                   sm_count(dev))
+    part = (torch.empty(scratch, device=dev, dtype=torch.float32)
+            if scratch else None)
     out = torch.empty((b, lq, h * dv), device=dev, dtype=torch.float32)
     lse = torch.empty((b * h, lq), device=dev, dtype=torch.float32)
     err = _lib().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, out.data_ptr(),
-        lse.data_ptr(), b, h, lq, lk, d, dv, valid_all,
+        lse.data_ptr(), None if part is None else part.data_ptr(), splits,
+        score_splits, slab, b, h, lq, lk, d, dv, valid_all,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(dev).cuda_stream)

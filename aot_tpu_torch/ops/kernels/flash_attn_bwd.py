@@ -10,7 +10,10 @@ point with what the forward saved.
                              version, a CUDA tensor launches the kernels or
                              raises — there is no fallback
   flash_attention_bwd_cuda   the kernel wrapper (counts LAUNCHES: one per
-                             call, which runs the dQ, dK and dV kernels)
+                             call, which runs the dQ kernel, then the dK and
+                             dV kernel, or for dv > 32, slab by slab, the
+                             products of dK and dV from the P and dS it
+                             kept)
   flash_attention_bwd_plain  the same function in plain PyTorch
 
 All three take q, k, v (B, L, h*d / h*dv), valid_len (None, an int or a (B,)
@@ -28,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from aot_tpu_torch.ops.kernels import _build
+from aot_tpu_torch.ops.kernels import _build, flash_attn
 from aot_tpu_torch.ops.kernels.flash_attn import (NEG_INF, ValidLen, _check,
                                                   _dims, shape_error)
 
@@ -37,7 +40,6 @@ from aot_tpu_torch.ops.kernels.flash_attn import (NEG_INF, ValidLen, _check,
 LAUNCHES = 0
 
 _TILE = 64            # csrc/flash_attn_bwd.cu kT
-_MIN_BLOCKS = 264     # two waves on 132 SMs: below it dQ splits its key loop
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -86,11 +88,26 @@ def flash_attention_bwd_plain(
             merge(p.transpose(-1, -2) @ doh, lk))
 
 
+def scratch_plan(b: int, lq: int, lk: int, num_heads: int,
+                 dv: int) -> Tuple[int, int]:
+    """(slab, scratch floats) of the backward. For dv <= 32 (AOT's heads)
+    the key-tile kernel computes dK and dV together: (0, 0). Wider, two
+    passes over slabs of query rows (flash_attn.slab_rows): the dQ kernel
+    keeps the slab's P and dS of every (query, key) (B*h*slab rows of Lk
+    rounded up to 32 floats each), so dV and dK need no recompute of S and
+    dP (csrc/flash_attn_bwd.cu grad_t_kernel)."""
+    if dv <= 32:
+        return 0, 0
+    slab = flash_attn.slab_rows(b * num_heads, lq, lk)
+    return slab, 2 * b * num_heads * slab * (-(-lk // 32) * 32)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_bwd")
     fn = lib.flash_attn_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -148,9 +165,13 @@ def flash_attention_bwd_cuda(
         valid_all = max(0, min(int(valid_len), lk))
 
     delta = _delta(out, dout, h).contiguous()
-    blocks = b * h * -(-lq // _TILE)
-    splits = 1 if blocks >= _MIN_BLOCKS else min(
-        -(-lk // _TILE), -(-_MIN_BLOCKS // blocks))
+    slab, floats = scratch_plan(b, lq, lk, h, dv)
+    scratch = (torch.empty(floats, device=dev, dtype=torch.float32)
+               if floats else None)
+    # the dQ kernel's key loop split to fill two blocks a multiprocessor
+    rows = min(slab, lq) if slab else lq
+    splits = flash_attn._splits(b * h * -(-rows // _TILE),
+                                2 * flash_attn.sm_count(dev), -(-lk // _TILE))
     dq_part = (torch.empty((splits, b, lq, h * d), device=dev,
                            dtype=torch.float32) if splits > 1 else None)
     dq = torch.empty((b, lq, h * d), device=dev, dtype=torch.float32)
@@ -160,7 +181,8 @@ def flash_attention_bwd_cuda(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv_.data_ptr(), None if dq_part is None else dq_part.data_ptr(),
-        splits, b, h, lq, lk, d, dv, valid_all,
+        splits, None if scratch is None else scratch.data_ptr(), slab, b, h,
+        lq, lk, d, dv, valid_all,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -23,13 +23,23 @@ to 13); any failure raises and the exit code is non-zero:
      full-resolution grids (64x113 and 68x120 with rel_v, 43x76 at B=2,
      DeAOT's head at 64x113, a 5x3 grid narrower than the window), both at
      the TPU narrow kernel's test shapes (10x12, 9x7, 8x8, with and without
-     rel_v), the flash forward at six shapes.
+     rel_v), the flash forward at twelve: DeAOTL's long-term reads (two
+     passes, key splits; one at DAVIS 1080p, Lq=7,232 over 14,464 keys,
+     whose scores take two query slabs), AOT's heads over a long memory
+     and the flash_mem hw_check shape, AOTT's training shape (B=16, h=8,
+     Lq=Lk=900; all keys live and a partial (B,) live length), a
+     near-flat softmax at Lk=19,800 (q scaled by 1e-3: every weight ~1/Lk,
+     where a running fp32 sum over the keys loses most), a one-pass grid
+     that splits its key loop 17 ways (B*h=1, some splits empty) and
+     d=dv=64 (the one-pass kernel's 128-column value tile).
   3. kernel and plain times (CUDA events, median of 2 x 50 runs, in the
-     order plain, kernels, kernels reversed, plain): the wide and the flat
-     local-window kernels at 64x113 (AOT and DeAOT heads) and at 30x30
-     (AOT), the flash kernel at DeAOTL's long-term shape with 9,000 and
-     19,800 keys and, there, F.scaled_dot_product_attention with a boolean
-     live-key mask (the library yardstick; the port never calls it).
+     order plain, kernels, kernels reversed, plain; 2 x 20 at 1080p): the
+     wide and the flat local-window kernels at 64x113 (AOT and DeAOT heads)
+     and at 30x30 (AOT), the flash forward at AOTT's training shape and at
+     DeAOTL's long-term shape with 9,000 and 19,800 keys and at 1080p
+     (Lq=7,232, 14,464 keys), each beside F.scaled_dot_product_attention
+     with a boolean live-key mask (the library yardstick; the port never
+     calls it; the backend it picks is printed).
   4. the first main path: AOTT at 465x465 with 10 objects and seeded random
      weights — VOSInferEngine.add_reference_frame, then STEPS frames of
      VOSInferEngine.step on a seeded synthetic video, in the evaluator's
@@ -49,10 +59,15 @@ to 13); any failure raises and the exit code is non-zero:
      training shape (B=16, h=8, d=dv=32, Lq=Lk=900; all keys live, and a
      partial (B,) live length), the hw_check shape (B=2, Lk=7,200, live
      [7200, 4320]), DeAOTL's LT shape (h=1, d=128, dv=1024) at Lk=9,000
-     and 19,800, and a row with no live key.
+     and 19,800 and near-flat at 19,800, at 1080p (Lq=7,232, Lk=14,464:
+     two query slabs), B=2 with one element's keys all dead (zero
+     gradients there), d=dv=64 (two passes), and a row with no live key at
+     AOT's heads; a second run of each must give the same bits (no
+     atomics).
   9. backward kernel and plain times, as 3, at AOTT's training shape and
-     DeAOTL's LT shape (Lk=19,800); at AOTT's, the autograd backward of
-     F.scaled_dot_product_attention as the library yardstick.
+     DeAOTL's LT shape (Lk=19,800 at Lq=900, and 14,464 at 1080p), each
+     beside the autograd backward of F.scaled_dot_product_attention (the
+     library yardstick).
  10. the third main path, AOTT training: Trainer.sequential_training on a
      seeded clip source (TRAIN_BATCH clips of moving ellipses, 465x465,
      T=5, fixed: every step sees the same clips), stage pre_ytb_dav, fp32,
@@ -138,11 +153,15 @@ EVAL_FRAMES = 9           # the reference frame, then 8 timed by the evaluator
 EVAL_OBJECTS = 5
 EVAL_WARMUP = 3           # of the evaluator's timed frames
 
-# H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores, and
-# HBM3 bandwidth. A kernel's bound is the larger of its operations over the
-# first and its bytes (each input read once, each output written once) over
-# the second.
-PEAK_FP32_FLOPS = 67e12
+# H100 SXM peaks (NVIDIA's data sheet). The flash kernels compute fp32
+# products to fp32 accuracy on the TF32 tensor cores, as three TF32
+# products each (3xTF32: 495 TFLOP/s dense / 3); the card's fp32 rate
+# outside the tensor cores is 67 TFLOP/s. The faster of the two is the
+# least time any kernel could take for fp32-accurate work, so every row's
+# bound uses it and no kernel reads faster than its bound. A kernel's bound
+# is the larger of its operations over that rate and its bytes (each input
+# read once, each output written once) over the HBM3 bandwidth.
+PEAK_FP32_ACCURATE_TC_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 
 # kernel name (= its csrc/<name>.cu) -> (module under aot_tpu_torch.ops.
@@ -216,11 +235,15 @@ def local_inputs(rng, b, hgt, wid, h, d, dv, with_rv, max_dis, device):
                      device)
 
 
-def flash_inputs(rng, b, lq, lk, h, d, dv, valid, device, ring=0):
+def flash_inputs(rng, b, lq, lk, h, d, dv, valid, device, ring=0,
+                 q_scale=1.0):
     """q, k, v, valid_len for the flash kernel. ring > 0 hands it k and v as
     the live prefix of a longer ring (batch stride > Lk rows), as the
-    engine does; valid: None, an int, or a list (a (B,) int32 tensor)."""
-    q, k, v = to_device([rng.randn(b, lq, h * d), rng.randn(b, lk + ring, h * d),
+    engine does; valid: None, an int, or a list (a (B,) int32 tensor).
+    q_scale 1e-3 makes every softmax nearly flat (the weights nearly equal:
+    the case where a running fp32 sum over the keys loses most)."""
+    q, k, v = to_device([q_scale * rng.randn(b, lq, h * d),
+                         rng.randn(b, lk + ring, h * d),
                          rng.randn(b, lk + ring, h * dv)], device)
     if isinstance(valid, list):
         valid = torch.tensor(valid, dtype=torch.int32, device=device)
@@ -271,34 +294,66 @@ def check_kernel_numerics(lwa, fa, device):
                     f"{kname} {name}: kernel vs plain {err} > {KERNEL_TOL}")
             worst[kname] = max(worst[kname], err)
 
-    flash_cases = [  # name, B, Lq, Lk, heads, d, dv, valid_len, ring
-        ("deaotl_lk9000", 1, 900, 9000, 1, 128, 1024, 9000, 0),
-        ("deaotl_lk14400_live9900", 1, 900, 14400, 1, 128, 1024, [9900], 0),
-        ("deaotl_b2_ring", 2, 900, 14400, 1, 128, 1024, [14400, 8100], 3600),
-        ("deaotl_b2_empty", 2, 900, 9000, 1, 128, 1024, [9000, 0], 0),
-        ("aot_heads_lk14400", 1, 900, 14400, 8, 32, 32, None, 0),
-        ("flash_mem_hw_check", 2, 900, 7200, 8, 32, 32, [7200, 4320], 0),
+    worst["flash_attn_fwd"] = check_flash_numerics(fa, device, rng)
+    return worst
+
+
+def fwd_plan(fa, b, lq, lk, h, dv, device):
+    """(key splits, score splits, slab) of a forward launch."""
+    return fa.fwd_plan(b, lq, lk, h, dv, fa.sm_count(device))[:3]
+
+
+def check_flash_numerics(fa, device, rng):
+    """Phase 2's flash forward cases: kernel vs plain, out and lse. Returns
+    the worst error."""
+    flash_cases = [  # name, B, Lq, Lk, heads, d, dv, valid_len, ring, q_scale
+        ("deaotl_lk9000", 1, 900, 9000, 1, 128, 1024, 9000, 0, 1.0),
+        ("deaotl_1080p_two_slabs", 1, 7232, 14464, 1, 128, 1024, 14464, 0,
+         1.0),
+        ("deaotl_lk14400_live9900", 1, 900, 14400, 1, 128, 1024, [9900], 0,
+         1.0),
+        ("deaotl_b2_ring", 2, 900, 14400, 1, 128, 1024, [14400, 8100], 3600,
+         1.0),
+        ("deaotl_b2_empty", 2, 900, 9000, 1, 128, 1024, [9000, 0], 0, 1.0),
+        ("deaotl_lk19800_near_flat", 1, 900, 19800, 1, 128, 1024, 19800, 0,
+         1e-3),
+        ("aot_heads_lk14400", 1, 900, 14400, 8, 32, 32, None, 0, 1.0),
+        ("flash_mem_hw_check", 2, 900, 7200, 8, 32, 32, [7200, 4320], 0, 1.0),
+        ("aott_train", 16, 900, 900, 8, 32, 32, None, 0, 1.0),
+        ("aott_train_partial", 16, 900, 900, 8, 32, 32,
+         [900 - 37 * i for i in range(16)], 0, 1.0),
+        # B*h = 1 at AOT's width: 15 blocks, so 17 key splits of 4 tiles,
+        # the last ones past the live keys (empty partials in the merge)
+        ("split_keys_h1", 1, 900, 4000, 1, 32, 32, [2500], 0, 1.0),
+        ("d64_dv64", 2, 300, 1000, 2, 64, 64, [1000, 700], 0, 1.0),
     ]
     worst_flash = 0.0
-    for name, b, lq, lk, h, d, dv, valid, ring in flash_cases:
+    for name, b, lq, lk, h, d, dv, valid, ring, q_scale in flash_cases:
         q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid, device,
-                                   ring)
+                                   ring, q_scale)
         out, lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
+        plan = fwd_plan(fa, b, lq, lk, h, dv, device)
         want_out, want_lse = fa.flash_attention_plain(q, k, v, vl, h, d)
         torch.cuda.synchronize()
         err = max((out - want_out).abs().max().item(),
                   (lse - want_lse).abs().max().item())
+        del want_out, want_lse
         if name == "deaotl_b2_empty" and not (
                 bool((out[1] == 0).all()) and bool((lse[1] == fa.NEG_INF).all())):
             raise AssertionError(f"{name}: an empty row is not out 0, lse -1e30")
+        if name == "split_keys_h1" and plan[0] < 2:
+            raise AssertionError(f"{name}: {plan} key split(s)")
+        if name.endswith("_two_slabs") and -(-lq // plan[2]) != 2:
+            raise AssertionError(f"{name}: slab {plan[2]} of {lq} rows")
+        shown = "(B,) partial" if isinstance(valid, list) and b > 2 else valid
         print(f"phase 2: flash_attn_fwd {name} B={b} Lq={lq} Lk={lk} h={h} "
-              f"d={d} dv={dv} valid={valid}: max_abs_err (out, lse) "
-              f"{err:.3e}", flush=True)
+              f"d={d} dv={dv} valid={shown} q_scale={q_scale}, key splits "
+              f"(output, scores) and query slab {plan}: max_abs_err (out, "
+              f"lse) {err:.3e}", flush=True)
         if not err <= KERNEL_TOL:
             raise AssertionError(f"{name}: kernel vs plain {err} > {KERNEL_TOL}")
         worst_flash = max(worst_flash, err)
-    worst["flash_attn_fwd"] = worst_flash
-    return worst
+    return worst_flash
 
 
 def cuda_times_ms(fn, runs: int = 50, warmup: int = 10):
@@ -328,7 +383,7 @@ def time_fns(fns, runs: int = 50, warmup: int = 10):
 
 def bound(flops: float, nbytes: float):
     """(ms, 'operations' or 'bytes'): the least time the card could take."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / PEAK_FP32_ACCURATE_TC_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -383,6 +438,13 @@ def sdpa_args(q, k, v, vl, h, d):
     return split(q, d), split(k, d), split(v, dv), mask[:, None, None, :]
 
 
+def sdpa_backend(qs, ks, vs, mask) -> str:
+    """The backend F.scaled_dot_product_attention picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(qs, ks, vs, mask)).name
+
+
 def time_kernels(lwa, fa, device, card: str):
     """Phase 3. Returns {name: (kernel ms, plain ms, library ms or None,
     (bound ms, what bounds it))}
@@ -416,27 +478,38 @@ def time_kernels(lwa, fa, device, card: str):
         if label == "AOTT DAVIS 1080p ST":
             times["local_window_attn_wide"] = (t["wide"], t["plain"], None,
                                                (b_ms, b_by))
-    for lk in (9000, 19800):
-        q, k, v, vl = flash_inputs(rng, 1, 900, lk, 1, 128, 1024, lk, device)
-        qs, ks, vs, mask = sdpa_args(q, k, v, vl, 1, 128)
+    # the forward at AOTT's training shape, at DeAOTL's LT reads at 465x465
+    # (the JSON line's row: Lk = 19,800) and at DAVIS 1080p (two slabs)
+    for label, b, lq, lk, h, d, dv in (
+            ("AOTT training", 16, 900, 900, 8, 32, 32),
+            ("DeAOTL LT", 1, 900, 9000, 1, 128, 1024),
+            ("DeAOTL LT", 1, 900, 19800, 1, 128, 1024),
+            ("DeAOTL 1080p LT", 1, 7232, 14464, 1, 128, 1024)):
+        vl = None if b > 1 else lk
+        q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, vl, device)
+        qs, ks, vs, mask = sdpa_args(q, k, v, vl, h, d)
         t = time_fns({
-            "plain": lambda: fa.flash_attention_plain(q, k, v, vl, 1, 128),
-            "kernel": lambda: fa.flash_attention_cuda(q, k, v, vl, 1, 128),
+            "plain": lambda: fa.flash_attention_plain(q, k, v, vl, h, d),
+            "kernel": lambda: fa.flash_attention_cuda(q, k, v, vl, h, d),
             "library": lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask)})
+                qs, ks, vs, attn_mask=mask)}, *((20, 3) if lq > 900 else ()))
         lib_err = (F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
-                   .transpose(1, 2).reshape(1, 900, 1024)
-                   - fa.flash_attention_plain(q, k, v, vl, 1, 128)[0]
+                   .transpose(1, 2).reshape(b, lq, h * dv)
+                   - fa.flash_attention_plain(q, k, v, vl, h, d)[0]
                    ).abs().max().item()
-        b_ms, b_by = flash_fwd_bound(1, 900, lk, 1, 128, 1024)
-        print(f"phase 3: flash_attn_fwd DeAOTL LT shape Lq=900 Lk={lk} h=1 "
-              f"d=128 dv=1024: kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms, F.scaled_dot_product_attention with a "
-              f"boolean live-key mask {t['library']:.4f} ms (vs plain "
-              f"{lib_err:.1e}); bound {b_ms:.4f} ms ({b_by}) ({card})",
+        b_ms, b_by = flash_fwd_bound(b, lq, lk, h, d, dv)
+        print(f"phase 3: flash_attn_fwd {label} shape B={b} Lq={lq} Lk={lk} "
+              f"h={h} d={d} dv={dv} (key splits (output, scores) and query "
+              f"slab {fwd_plan(fa, b, lq, lk, h, dv, device)}): kernel "
+              f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"F.scaled_dot_product_attention with a boolean live-key mask "
+              f"({sdpa_backend(qs, ks, vs, mask)}) {t['library']:.4f} ms (vs "
+              f"plain {lib_err:.1e}); bound {b_ms:.4f} ms ({b_by}) ({card})",
               flush=True)
-        times["flash_attn_fwd"] = (t["kernel"], t["plain"], t["library"],
-                                   (b_ms, b_by))
+        if lk == 19800:
+            times["flash_attn_fwd"] = (t["kernel"], t["plain"], t["library"],
+                                       (b_ms, b_by))
+        del q, k, v, qs, ks, vs
     return times
 
 
@@ -570,38 +643,52 @@ def check_bwd_numerics(fa, fab, device):
     error relative to each gradient's largest entry. Returns the worst
     absolute error."""
     rng = np.random.RandomState(SEED + 2)
-    cases = [  # name, B, Lq, Lk, heads, d, dv, valid_len
-        ("aott_train", 16, 900, 900, 8, 32, 32, None),
+    cases = [  # name, B, Lq, Lk, heads, d, dv, valid_len, q_scale
+        ("aott_train", 16, 900, 900, 8, 32, 32, None, 1.0),
         ("aott_train_partial", 16, 900, 900, 8, 32, 32,
-         [900 - 37 * i for i in range(16)]),
-        ("hw_check", 2, 900, 7200, 8, 32, 32, [7200, 4320]),
-        ("deaotl_lk9000", 1, 900, 9000, 1, 128, 1024, None),
-        ("deaotl_lk19800", 1, 900, 19800, 1, 128, 1024, [19800]),
-        ("empty_row", 2, 130, 200, 2, 32, 32, [200, 0]),
+         [900 - 37 * i for i in range(16)], 1.0),
+        ("hw_check", 2, 900, 7200, 8, 32, 32, [7200, 4320], 1.0),
+        ("deaotl_lk9000", 1, 900, 9000, 1, 128, 1024, None, 1.0),
+        ("deaotl_lk19800", 1, 900, 19800, 1, 128, 1024, [19800], 1.0),
+        ("deaotl_lk19800_near_flat", 1, 900, 19800, 1, 128, 1024, None, 1e-3),
+        ("deaotl_1080p_two_slabs", 1, 7232, 14464, 1, 128, 1024, None, 1.0),
+        ("deaotl_b2_empty", 2, 900, 9000, 1, 128, 1024, [6300, 0], 1.0),
+        ("d64_dv64", 2, 300, 1000, 2, 64, 64, [1000, 700], 1.0),
+        ("empty_row", 2, 130, 200, 2, 32, 32, [200, 0], 1.0),
     ]
     worst = 0.0
-    for name, b, lq, lk, h, d, dv, valid in cases:
-        q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid, device)
+    for name, b, lq, lk, h, d, dv, valid, q_scale in cases:
+        q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid, device,
+                                   q_scale=q_scale)
         out, lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
         dout = torch.tensor(rng.randn(b, lq, h * dv), dtype=torch.float32,
                             device=device)
+        slab = fab.scratch_plan(b, lq, lk, h, dv)[0]
+        if name.endswith("_two_slabs") and -(-lq // slab) != 2:
+            raise AssertionError(f"{name}: slab {slab} of {lq} rows")
         got = fab.flash_attention_bwd_cuda(q, k, v, vl, out, lse, dout, h, d)
+        again = fab.flash_attention_bwd_cuda(q, k, v, vl, out, lse, dout, h,
+                                             d)
         want = fab.flash_attention_bwd_plain(q, k, v, vl, out, lse, dout, h,
                                              d)
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name}: two runs of the backward differ")
         errs, rels = [], []
         for g, w in zip(got, want):
             if not bool(torch.isfinite(g).all()):
                 raise AssertionError(f"{name}: non-finite gradient")
             errs.append((g - w).abs().max().item())
             rels.append(errs[-1] / max(w.abs().max().item(), 1e-30))
-        if name == "empty_row" and any(bool(g[1].any()) for g in got):
+        if (isinstance(valid, list) and valid[-1] == 0
+                and any(bool(g[-1].any()) for g in got)):
             raise AssertionError(f"{name}: a row with no live key has "
                                  "non-zero gradients")
         print(f"phase 8: flash_attn_bwd {name} B={b} Lq={lq} Lk={lk} h={h} "
-              f"d={d} dv={dv}: max_abs_err (dq, dk, dv) {errs[0]:.3e} "
-              f"{errs[1]:.3e} {errs[2]:.3e}; / max|grad| {rels[0]:.3e} "
-              f"{rels[1]:.3e} {rels[2]:.3e} (tolerance {BWD_TOL})", flush=True)
+              f"d={d} dv={dv} q_scale={q_scale}: max_abs_err (dq, dk, dv) "
+              f"{errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e}; / max|grad| "
+              f"{rels[0]:.3e} {rels[1]:.3e} {rels[2]:.3e} (tolerance "
+              f"{BWD_TOL}); a second run bit-identical", flush=True)
         if not max(rels) <= BWD_TOL:
             raise AssertionError(f"{name}: kernel vs plain {rels} > {BWD_TOL}")
         worst = max(worst, max(errs))
@@ -610,38 +697,41 @@ def check_bwd_numerics(fa, fab, device):
 
 def time_bwd(fa, fab, device, card: str):
     """Phase 9. Returns (kernel ms, plain ms, library ms, (bound ms, what
-    bounds it)) at AOTT's training shape; the library yardstick is the autograd backward of
-    F.scaled_dot_product_attention with a boolean live-key mask."""
+    bounds it)) at AOTT's training shape; the library yardstick is the
+    autograd backward of F.scaled_dot_product_attention with a boolean
+    live-key mask."""
     import torch.nn.functional as F
 
     rng = np.random.RandomState(SEED + 3)
     result = None
-    for label, b, lk, h, d, dv in (("AOTT training", 16, 900, 8, 32, 32),
-                                   ("DeAOTL LT", 1, 19800, 1, 128, 1024)):
-        q, k, v, vl = flash_inputs(rng, b, 900, lk, h, d, dv, None, device)
+    for label, b, lq, lk, h, d, dv in (
+            ("AOTT training", 16, 900, 900, 8, 32, 32),
+            ("DeAOTL LT", 1, 900, 19800, 1, 128, 1024),
+            ("DeAOTL 1080p LT", 1, 7232, 14464, 1, 128, 1024)):
+        q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, None, device)
         out, lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
-        dout = torch.tensor(rng.randn(b, 900, h * dv), dtype=torch.float32,
+        dout = torch.tensor(rng.randn(b, lq, h * dv), dtype=torch.float32,
                             device=device)
         args = (q, k, v, vl, out, lse, dout, h, d)
-        fns = {"plain": lambda: fab.flash_attention_bwd_plain(*args),
-               "kernel": lambda: fab.flash_attention_bwd_cuda(*args)}
-        if result is None:
-            qs, ks, vs, mask = sdpa_args(q, k, v, vl, h, d)
-            leaves = [x.requires_grad_() for x in (qs, ks, vs)]
-            with torch.enable_grad():
-                lib_out = F.scaled_dot_product_attention(*leaves,
-                                                         attn_mask=mask)
-            lib_dout = dout.reshape(b, 900, h, dv).transpose(1, 2)
-            fns["library"] = lambda: torch.autograd.grad(
-                lib_out, leaves, lib_dout, retain_graph=True)
-        t = time_fns(fns)
-        b_ms, b_by = flash_bwd_bound(b, 900, lk, h, d, dv)
-        lib = (f", F.scaled_dot_product_attention backward "
-               f"{t['library']:.4f} ms" if "library" in t else "")
-        print(f"phase 9: flash_attn_bwd {label} shape B={b} Lq=900 Lk={lk} "
+        qs, ks, vs, mask = sdpa_args(q, k, v, vl, h, d)
+        backend = sdpa_backend(qs, ks, vs, mask)
+        leaves = [x.requires_grad_() for x in (qs, ks, vs)]
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_dout = dout.reshape(b, lq, h, dv).transpose(1, 2)
+        t = time_fns({
+            "plain": lambda: fab.flash_attention_bwd_plain(*args),
+            "kernel": lambda: fab.flash_attention_bwd_cuda(*args),
+            "library": lambda: torch.autograd.grad(
+                lib_out, leaves, lib_dout, retain_graph=True)},
+            *((20, 3) if lq > 900 else ()))
+        del lib_out, leaves, args, q, k, v, out, dout
+        b_ms, b_by = flash_bwd_bound(b, lq, lk, h, d, dv)
+        print(f"phase 9: flash_attn_bwd {label} shape B={b} Lq={lq} Lk={lk} "
               f"h={h} d={d} dv={dv}: kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms{lib}; bound {b_ms:.4f} ms ({b_by}) "
-              f"({card})", flush=True)
+              f"{t['plain']:.4f} ms, F.scaled_dot_product_attention backward "
+              f"({backend}) {t['library']:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}) ({card})", flush=True)
         result = result or (t["kernel"], t["plain"], t["library"],
                             (b_ms, b_by))
     return result

@@ -174,6 +174,156 @@ def test_local_kernel_shape_rule(d, dv, max_dis, ok):
     assert (lwa.shape_error(d, dv, max_dis) is None) is ok
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the float32 bits: 10 mantissa bits, to nearest,
+    ties away from zero (add half of the 13 dropped bits' range to the
+    magnitude, then clear them), as csrc/tf32x3.cuh rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """fp64 to fp32, rounded toward zero: how the tensor core writes its
+    fp32 accumulator after each mma.sync."""
+    x32 = x.float()
+    over = x32.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(x32, torch.zeros_like(x32)), x32)
+
+
+def _mma(a, b, acc=None, products=3, small=None):
+    """acc + a @ b as a chain of m16n8k8 mma.sync steps, as the flash kernels
+    issue them: each operand split into TF32 hi and lo, and for every 8-wide
+    slice of the summation index the products a_lo b_hi, a_hi b_lo, a_hi b_hi
+    (products=3; a_hi b_hi alone for products=1) each added exactly to the
+    accumulator, which is then rounded toward zero to fp32. With `small`
+    (an accumulator), the two small products go there (tf32x3::mma3_apart);
+    returns (acc, small)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    if acc is None:
+        acc = torch.zeros(a.shape[0], b.shape[1])
+    terms = ([(a_lo, b_hi, True), (a_hi, b_lo, True)] if products == 3
+             else []) + [(a_hi, b_hi, False)]
+    for k0 in range(0, a.shape[1], 8):
+        for x, y, is_small in terms:
+            xy = x[:, k0:k0 + 8].double() @ y[k0:k0 + 8].double()
+            if is_small and small is not None:
+                small = _round_toward_zero(small.double() + xy)
+            else:
+                acc = _round_toward_zero(acc.double() + xy)
+    return acc, small
+
+
+def _mm_3xtf32(a, b):
+    """a @ b in 3xTF32 with the large term apart, as the kernels compute
+    the scores at d > 32: big + small added once in fp32."""
+    big, small = _mma(a, b, small=torch.zeros(a.shape[0], b.shape[1]))
+    return big + small
+
+
+def _mm_tf32(a, b):
+    return _mma(a, b, products=1)[0]
+
+
+def _tiled_forward(q, k, v, mm, tile=64):
+    """The kernel's forward for one head: online softmax over key tiles,
+    each tile's P V (its own mma accumulator) and row sum folded once in
+    fp32, acc = acc * alpha + pv."""
+    scale = 1.0 / math.sqrt(q.shape[1])
+    m = torch.full((q.shape[0], 1), fa.NEG_INF)
+    l = torch.zeros(q.shape[0], 1)
+    acc = torch.zeros(q.shape[0], v.shape[1])
+    for k0 in range(0, k.shape[0], tile):
+        s = mm(q, k[k0:k0 + tile].T) * scale
+        m_new = torch.maximum(m, s.amax(1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * alpha + p.sum(1, keepdim=True)
+        acc = acc * alpha + mm(p, v[k0:k0 + tile])
+        m = m_new
+    return acc / l, (m + torch.log(l))[:, 0]
+
+
+@pytest.mark.parametrize("q_scale,one_pass_holds", [
+    (1e-3, True),   # near-flat: every weight ~1/Lk
+    (2.0, False),   # sharp: a few keys carry each row
+])
+def test_three_tf32_products_hold_the_fp32_gate(q_scale, one_pass_holds):
+    """Why the flash kernels take three TF32 products a product: against an
+    fp64 reference (Lq=64, Lk=4,096, d=128, dv=64), 3xTF32 with per-tile
+    folding, the accumulator rounded toward zero after every mma, stays 10x
+    inside the 1e-4 gate of chip_smoke.py phase 2 (1.0e-6 near-flat,
+    2.6e-6 sharp), as an fp32 forward does. One TF32 pass keeps ~3 digits
+    of each score: on a near-flat softmax its error (1.5e-5) still holds
+    the gate, though over 10 times the three-product error; where the
+    softmax is sharp its score errors move the weights and it fails the
+    gate (8.8e-4)."""
+    rng = np.random.RandomState(7)
+    q = torch.tensor(q_scale * rng.randn(64, 128), dtype=torch.float32)
+    k = torch.tensor(rng.randn(4096, 128), dtype=torch.float32)
+    v = torch.tensor(rng.randn(4096, 64), dtype=torch.float32)
+    s = q.double() @ k.double().T / math.sqrt(128)
+    want_out, want_lse = torch.softmax(s, 1) @ v.double(), torch.logsumexp(s, 1)
+
+    def err(mm):
+        out, lse = _tiled_forward(q, k, v, mm)
+        return max((out.double() - want_out).abs().max().item(),
+                   (lse.double() - want_lse).abs().max().item())
+
+    three, one = err(_mm_3xtf32), err(_mm_tf32)
+    assert three <= 1e-5
+    assert one > 10 * three
+    assert (one <= 1e-4) is one_pass_holds
+
+
+def test_long_sums_are_folded_per_tile():
+    """Why the backward folds dQ once per key tile: dQ = dS K sums over
+    every live key (here 19,800, DeAOTL's longest memory). Straight into
+    one mma accumulator that is ~7,400 roundings toward zero, all one way:
+    2.0e-4 of the largest entry, twice the 1e-4 gate of chip_smoke.py
+    phase 8. Each 32-key tile summed in its own accumulator and added in
+    fp32 (csrc/flash_attn_bwd.cu): 9.2e-7."""
+    rng = np.random.RandomState(3)
+    lk, tile = 19800, 32
+    ds = torch.tensor(rng.randn(16, lk) / lk, dtype=torch.float32)
+    k = torch.tensor(rng.randn(lk, 128), dtype=torch.float32)
+    want = ds.double() @ k.double()
+    straight = _mma(ds, k)[0]
+    folded = torch.zeros(16, 128)
+    for k0 in range(0, lk, tile):
+        folded = folded + _mma(ds[:, k0:k0 + tile], k[k0:k0 + tile])[0]
+    scale = want.abs().max().item()
+    err_straight = (straight.double() - want).abs().max().item() / scale
+    err_folded = (folded.double() - want).abs().max().item() / scale
+    assert err_folded <= 1e-5
+    assert err_straight > 1e-4
+
+
+@pytest.mark.parametrize("b,lq,lk,h,dv,splits,score_splits,slab", [
+    (1, 900, 19800, 1, 1024, 2, 17, 960),  # one DeAOTL video: two passes
+    (2, 900, 14400, 1, 1024, 1, 8, 960),   # 240 output blocks
+    (4, 900, 19800, 1, 1024, 1, 5, 832),   # 285 MB of scores: two slabs
+    (1, 7232, 14464, 1, 1024, 1, 3, 4608),  # DAVIS 1080p: two slabs
+    (1, 900, 4000, 1, 32, 17, 0, 0),       # 15 blocks
+    (1, 100, 64, 1, 32, 1, 0, 0),          # one key tile
+    (16, 900, 900, 8, 32, 1, 0, 0),        # AOTT training: 1,920 blocks
+])
+def test_forward_plan(b, lq, lk, h, dv, splits, score_splits, slab):
+    """The forward's key splits, query slabs and scratch on a card of 132
+    multiprocessors: the splits bring a small grid toward the blocks the
+    card holds at once, never past them; two passes keep a slab's scores,
+    at most 256 MB."""
+    got = fa.fwd_plan(b, lq, lk, h, dv, 132)
+    assert got[:3] == (splits, score_splits, slab)
+    lds = -(-lk // 32) * 32
+    if score_splits:
+        assert b * h * slab * lds <= fa.SLAB_FLOATS
+        assert got[3] == (b * h * slab * lds + 2 * score_splits * b * h * lq
+                          + (splits * b * lq * h * dv if splits > 1 else 0))
+    else:
+        assert got[3] == (splits * (b * lq * h * dv + b * h * lq)
+                          if splits > 1 else 0)
+
+
 @pytest.mark.parametrize("d,dv,ok", [
     (128, 1024, True),        # DeAOTL's long-term attention at h=1
     (32, 32, True),           # the AOT heads

@@ -163,3 +163,21 @@ def test_bwd_wrapper_refuses_non_cuda_tensors():
     with pytest.raises(ValueError, match="is on cpu"):
         fab.flash_attention_bwd_cuda(*t, None, out, lse,
                                      torch.from_numpy(w), 1, 8)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,dv,slab", [
+    (1, 900, 19800, 1, 1024, 960),   # DeAOTL's LT read: one slab
+    (2, 900, 14400, 1, 1024, 960),
+    (4, 900, 19800, 1, 1024, 832),   # P or dS above 256 MB: two slabs
+    (1, 7232, 14464, 1, 1024, 4608),  # DAVIS 1080p: two slabs
+    (2, 300, 1000, 2, 64, 320),      # any dv above 32
+    (1, 100, 7, 1, 256, 128),
+    (16, 900, 900, 8, 32, 0),        # AOTT training: dK and dV together
+])
+def test_backward_scratch_rule(b, lq, lk, h, dv, slab):
+    """The backward keeps P and dS of a slab of query rows for every value
+    width above one dP chunk (32), each within the slab budget, rows padded
+    to 32 keys; at dv <= 32 it keeps nothing."""
+    lds = -(-lk // 32) * 32
+    assert fab.scratch_plan(b, lq, lk, h, dv) == (slab, 2 * b * h * slab * lds)
+    assert b * h * slab * lds <= fa.SLAB_FLOATS
