@@ -89,7 +89,6 @@ constexpr int kThreads = 128;    // 4 warps, 16 rows each
 constexpr int kCH = 32;          // dv chunk of the dP product
 constexpr int kLdX = kCH + 4;    // row stride of a dP chunk
 constexpr int kMaxD = 256;       // q/k channels per head
-constexpr float kNegInf = -1e30f;
 constexpr float kEmptyLse = -1e29f;  // lse below this: the row has no key
 constexpr float kLog2e = 1.4426950408889634f;
 

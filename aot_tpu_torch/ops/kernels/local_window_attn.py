@@ -1,28 +1,29 @@
-"""Local-window attention: the CUDA kernels and their plain PyTorch version.
+"""Local-window attention: the CUDA kernel and its plain PyTorch version.
 
-Two kernels compute the same function:
-  - csrc/local_window_attn.cu, the port of aot_tpu/ops/pallas/
-    local_window_attn.py:475 local_window_attention_flat (kernel body
-    `_kernel_flat`, :414): one warp per (query, head), for the eval grids
-    up to 2,500 query tokens;
-  - csrc/local_window_attn_wide.cu, the port of local_window_attn.py:294
-    local_window_attention_wide (kernel body `_kernel_wide`, :236): 4 x 32
-    query tiles with the key/value halo staged in shared memory, for the
-    full-resolution grids above 2,500 tokens.
-Each header says what bounds it on Hopper. ops/attention.py picks one
-(`local_route`).
+One kernel, csrc/local_window_attn_tc.cu, ports both TPU kernels of
+aot_tpu/ops/pallas/local_window_attn.py that serve dilation 1:
+local_window_attention_flat (:475, kernel body `_kernel_flat` :414; the
+grids up to 2,500 query tokens) and local_window_attention_wide (:294,
+`_kernel_wide` :236; the full-resolution grids above). Its header says what
+bounds it on Hopper. ops/attention.py keeps the JAX package's two routes
+(`local_route`), each with its own wrapper and launch count, so a run shows
+which grids went where; both launch the same kernel with the plan of
+`launch_plan` for their grid.
 
   local_window_attention             entry point: a CPU tensor takes the
                                      plain version, a CUDA tensor launches
-                                     the flat kernel or raises — there is no
-                                     fallback
-  local_window_attention_cuda        the flat kernel's wrapper (LAUNCHES)
-  local_window_attention_wide_cuda   the wide kernel's wrapper
+                                     the kernel on the flat route or raises
+                                     — there is no fallback
+  local_window_attention_cuda        the flat route's wrapper (LAUNCHES)
+  local_window_attention_wide_cuda   the wide route's wrapper
                                      (WIDE_LAUNCHES)
   local_window_attention_plain       the same function in plain PyTorch:
                                      the win² shifted slices of the
                                      zero-padded image (F.unfold), no
                                      (HW x HW) tensor
+  launch_plan                        passes, tile rows and grid of a
+                                     launch, from the shapes and the card's
+                                     multiprocessor count
 
 Layouts: q, k (B, HW, h*d); v (B, HW, h*dv); rel_bias (B, h, HW, win²);
 rel_v (h, dv, win²) or None; out (B, HW, h*dv).
@@ -31,8 +32,9 @@ rel_v (h, dv, win²) or None; out (B, HW, h*dv).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,17 +42,24 @@ import torch.nn.functional as F
 from aot_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30
-MAX_DIS = 7       # window of at most 15 x 15 slots
-MAX_D = 512       # q/k channels per head, held in shared memory (kMaxD)
-MAX_DV = 1024     # value channels per head: the kernel loops over them, and
-                  # 1024 (DeAOT's 2 x 512 value stream at h=1) is the widest
-                  # the card has checked
+MAX_DIS = 7       # window of at most 15 x 15 slots: 16 + 2*7 halo keys fit
+                  # the kernel's 32-key band
+MAX_D = 512       # q/k channels per head: a 1-row score tile's q rows and
+                  # k ring must fit shared memory
 
-# Kernel launches since the count was last reset, one count per kernel;
-# each wrapper adds one per launch and nothing else touches them, so a run
-# can show it went through the kernel.
-LAUNCHES = 0         # csrc/local_window_attn.cu
-WIDE_LAUNCHES = 0    # csrc/local_window_attn_wide.cu
+# Kernel launches since the count was last reset, one count per route; each
+# wrapper adds one per launch and nothing else touches them, so a run can
+# show it went through the kernel.
+LAUNCHES = 0         # the flat route (up to DENSE_LOCAL_MAX_TOKENS)
+WIDE_LAUNCHES = 0    # the wide route (above it)
+
+# csrc/local_window_attn_tc.cu's geometry
+TILE_X = 16           # queries a tile row (the mma tile's rows)
+HALO = 32             # halo keys a row
+ONE_PASS_MAX = 128    # d or dv above: two passes (scores once, then P V)
+VALUE_TILE = 128      # value columns a block of the two-pass P V
+TILE_CHANNELS = 512   # q/k channels x rows of a score tile at most: its q rows
+                      # and k ring then fit a block's shared memory
 
 
 def _window_valid(hgt: int, wid: int, max_dis: int, dilation: int,
@@ -108,62 +117,92 @@ def local_window_attention_plain(
 
 
 def shape_error(d: int, dv: int, max_dis: int) -> Optional[str]:
-    """Why the flat kernel does not take per-head widths (d, dv) and window
-    radius max_dis, or None."""
+    """Why the kernel does not take per-head widths (d, dv) and window
+    radius max_dis, or None. It copies 16 bytes at a time, so both widths
+    are multiples of 4."""
     if not 0 <= max_dis <= MAX_DIS:
         return f"max_dis={max_dis} (at most {MAX_DIS})"
-    if not 0 < d <= MAX_D:
-        return f"d={d} (at most {MAX_D})"
-    if not 0 < dv <= MAX_DV:
-        return f"dv={dv} (at most {MAX_DV})"
+    if not (0 < d <= MAX_D and d % 4 == 0):
+        return f"d={d} (a multiple of 4, at most {MAX_D})"
+    if not (dv > 0 and dv % 4 == 0):
+        return f"dv={dv} (a positive multiple of 4)"
     return None
 
 
-def wide_shape_error(d: int, dv: int, max_dis: int) -> Optional[str]:
-    """Why the wide kernel does not take (d, dv, max_dis), or None. It walks
-    d and dv in 32-channel chunks, so only the window is bounded (its score
-    block must fit shared memory)."""
-    if not 0 <= max_dis <= MAX_DIS:
-        return f"max_dis={max_dis} (at most {MAX_DIS})"
-    if d < 1 or dv < 1:
-        return f"d={d}, dv={dv} (at least 1)"
-    return None
+class LaunchPlan(NamedTuple):
+    """A launch of csrc/local_window_attn_tc.cu. Tuples hold one entry a
+    pass: (the one pass) or (the scores, the values)."""
+    rows: Tuple[int, ...]     # query rows a tile: what the kernel takes
+    blocks: Tuple[int, ...]   # grid size
+    scratch_floats: int       # P of the two-pass form, else 0
+
+    @property
+    def passes(self) -> int:
+        return len(self.rows)
+
+    def args(self) -> Tuple[int, int]:
+        """The kernel's plan argument: the rows a tile of the first pass,
+        then of the value pass (0 for one pass)."""
+        return (self.rows[0], self.rows[1] if self.passes == 2 else 0)
 
 
-def _load(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn = getattr(lib, fn_name)
+@functools.lru_cache(maxsize=256)
+def launch_plan(b: int, h: int, hgt: int, wid: int, d: int, dv: int,
+                max_dis: int, sms: int) -> LaunchPlan:
+    """Passes, tile rows and grid of a launch on a card of `sms`
+    multiprocessors. Up to d = dv = 128 one pass: a block per (tile, b,
+    head) takes all of dv. Above, two passes: the scores and softmax once, P
+    written to a (B*h, HW, win2) scratch, then P V over 128-column value
+    tiles. Each pass takes the tallest tile (4, 2 or 1 query rows of 16
+    pixels) whose grid still gives every multiprocessor a block (a taller
+    tile stages fewer halo rows a query row), or 1-row tiles where none
+    does. 4-row tiles only where a block's values are 32 columns wide (the
+    one pass at dv <= 32, or the scores), and a score tile holds at most
+    TILE_CHANNELS q/k channels x rows; the kernel derives the rest (warps,
+    ring stages, shared memory) from the rows."""
+    two = d > ONE_PASS_MAX or dv > ONE_PASS_MAX
+    tiles_x = -(-wid // TILE_X)
+    if two:
+        passes = (("scores", (4, 2, 1)), ("values", (2, 1)))
+    else:
+        passes = (("one", (4, 2, 1) if dv <= 32 else (2, 1)),)
+    rows, blocks = [], []
+    for mode, heights in passes:
+        z = -(-dv // VALUE_TILE) if mode == "values" else 1
+        fit = [r for r in heights if mode == "values" or r * d <= TILE_CHANNELS]
+        grid = lambda r: tiles_x * -(-hgt // r) * b * h * z
+        r = next((r for r in fit if grid(r) >= sms), fit[-1])
+        rows.append(r)
+        blocks.append(grid(r))
+    scratch = b * h * hgt * wid * (2 * max_dis + 1) ** 2 if two else 0
+    return LaunchPlan(tuple(rows), tuple(blocks), scratch)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("local_window_attn_tc")
+    fn = lib.local_window_attn_tc_fwd
     if fn.argtypes is None:
-        fn.argtypes = argtypes
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_float,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
-def _lib() -> ctypes.CDLL:
-    return _load("local_window_attn", "local_window_attn_fwd",
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                 + [ctypes.c_float, ctypes.c_void_p])
-
-
-def _wide_lib() -> ctypes.CDLL:
-    return _load("local_window_attn_wide", "local_window_attn_wide_fwd",
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-
-
 def _check(fn: str, name: str, t: torch.Tensor, shape, device) -> None:
     if (t.device != device or t.dtype != torch.float32
-            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
+            or t.data_ptr() % 16 != 0):
         raise ValueError(
-            f"{fn}: {name} must be a contiguous float32 tensor of shape "
-            f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device} (contiguous={t.is_contiguous()})")
+            f"{fn}: {name} must be a contiguous, 16-byte aligned float32 "
+            f"tensor of shape {tuple(shape)} on {device}; got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def _checked_dims(fn: str, why_not, q, k, v, rel_bias, rel_v, num_heads,
-                  size_2d, max_dis, d_att):
-    """The checks both kernel wrappers make before a launch. Returns
-    (B, h, H, W, d, dv); raises on anything the kernel does not take."""
+def _launch(fn: str, q, k, v, rel_bias, rel_v, num_heads, size_2d, max_dis,
+            d_att) -> torch.Tensor:
+    """The checks before a launch, and the launch. Raises on anything the
+    kernel does not take, and if the launch fails."""
     tensors = (q, k, v, rel_bias, rel_v)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
@@ -180,7 +219,7 @@ def _checked_dims(fn: str, why_not, q, k, v, rel_bias, rel_v, num_heads,
     d = d_att if d_att is not None else q.shape[-1] // h
     dv = v.shape[-1] // h
     win2 = (2 * max_dis + 1) ** 2
-    why = why_not(d, dv, max_dis)
+    why = shape_error(d, dv, max_dis)
     if why is not None or v.shape[-1] != h * dv:
         raise ValueError(f"{fn}: unsupported {why or ''} (heads={h}, v width "
                          f"{v.shape[-1]})")
@@ -191,7 +230,22 @@ def _checked_dims(fn: str, why_not, q, k, v, rel_bias, rel_v, num_heads,
     _check(fn, "rel_bias", rel_bias, (b, h, hw, win2), dev)
     if rel_v is not None:
         _check(fn, "rel_v", rel_v, (h, dv, win2), dev)
-    return b, h, hgt, wid, d, dv
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = launch_plan(b, h, hgt, wid, d, dv, max_dis, sms)
+    scratch = (torch.empty(plan.scratch_floats, device=dev,
+                           dtype=torch.float32)
+               if plan.scratch_floats else None)
+    out = torch.empty((b, hw, h * dv), device=dev, dtype=torch.float32)
+    err = _lib().local_window_attn_tc_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
+        None if rel_v is None else rel_v.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, h, hgt, wid, d,
+        dv, max_dis, (ctypes.c_int * 2)(*plan.args()), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"local_window_attn_tc_fwd failed to launch: CUDA error {err}")
+    return out
 
 
 def local_window_attention_cuda(
@@ -206,22 +260,11 @@ def local_window_attention_cuda(
     max_dis: int = 7,
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
-    """Launch the flat CUDA kernel (dilation 1, fp32). Raises on any input
-    it does not take, and if the launch fails."""
+    """The flat route: launch the CUDA kernel (dilation 1, fp32). Raises on
+    any input it does not take, and if the launch fails."""
     global LAUNCHES
-    b, h, hgt, wid, d, dv = _checked_dims(
-        "local_window_attention_cuda", shape_error, q, k, v, rel_bias, rel_v,
-        num_heads, size_2d, max_dis, d_att)
-    dev = q.device
-    out = torch.empty((b, hgt * wid, h * dv), device=dev, dtype=torch.float32)
-    err = _lib().local_window_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
-        None if rel_v is None else rel_v.data_ptr(), out.data_ptr(),
-        b, h, hgt, wid, d, dv, max_dis, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"local_window_attn_fwd failed to launch: CUDA error {err}")
+    out = _launch("local_window_attention_cuda", q, k, v, rel_bias, rel_v,
+                  num_heads, size_2d, max_dis, d_att)
     LAUNCHES += 1
     return out
 
@@ -238,23 +281,11 @@ def local_window_attention_wide_cuda(
     max_dis: int = 7,
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
-    """Launch the wide (query-tiled) CUDA kernel (dilation 1, fp32). Raises
-    on any input it does not take, and if the launch fails."""
+    """The wide route: the same kernel, counted apart (dilation 1, fp32).
+    Raises on any input it does not take, and if the launch fails."""
     global WIDE_LAUNCHES
-    b, h, hgt, wid, d, dv = _checked_dims(
-        "local_window_attention_wide_cuda", wide_shape_error, q, k, v,
-        rel_bias, rel_v, num_heads, size_2d, max_dis, d_att)
-    dev = q.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = torch.empty((b, hgt * wid, h * dv), device=dev, dtype=torch.float32)
-    err = _wide_lib().local_window_attn_wide_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
-        None if rel_v is None else rel_v.data_ptr(), out.data_ptr(),
-        b, h, hgt, wid, d, dv, max_dis, 1.0 / math.sqrt(d), sms,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"local_window_attn_wide_fwd failed to launch: CUDA error {err}")
+    out = _launch("local_window_attention_wide_cuda", q, k, v, rel_bias,
+                  rel_v, num_heads, size_2d, max_dis, d_att)
     WIDE_LAUNCHES += 1
     return out
 
@@ -272,8 +303,8 @@ def local_window_attention(
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
     """Dilation-1 local-window attention. A CPU tensor takes the plain
-    version; any other device goes to the flat CUDA kernel, which raises on
-    what it cannot take."""
+    version; any other device goes to the flat route's wrapper, which
+    launches the CUDA kernel or raises on what it cannot take."""
     kw = dict(num_heads=num_heads, size_2d=tuple(size_2d), max_dis=max_dis,
               d_att=d_att)
     if q.device.type == "cpu":

@@ -18,13 +18,17 @@ to 13); any failure raises and the exit code is non-zero:
   1. build the CUDA kernels from aot_tpu_torch/csrc/ (nvcc, sm_90a, one
      process per source, all at once).
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving paths give it (max abs error <= 1e-4): the flat
-     local-window kernel at the 465x465 grids, the wide one at the
-     full-resolution grids (64x113 and 68x120 with rel_v, 43x76 at B=2,
-     DeAOT's head at 64x113, a 5x3 grid narrower than the window), both at
-     the TPU narrow kernel's test shapes (10x12, 9x7, 8x8, with and without
-     rel_v), the flash forward at twelve: DeAOTL's long-term reads (two
-     passes, key splits; one at DAVIS 1080p, Lq=7,232 over 14,464 keys,
+     shapes the serving paths give it (max abs error <= 1e-4): the
+     local-window kernel (csrc/local_window_attn_tc.cu) through the flat
+     route's wrapper at the 465x465 grids and through the wide route's at
+     the full-resolution grids (64x113 and 68x120 with rel_v, 43x76 at B=2,
+     DeAOT's head at 64x113, a 5x3 grid narrower than the window), through
+     both at a window of one slot (max_dis 0), a grid of one row at both
+     heads, max_dis 3 and 5, a 64-column value tile with rel_v, dv=160 with
+     rel_v (two passes), d=512 (two passes, 1-row tiles), d=128 in
+     4-row tiles and the TPU narrow kernel's test shapes (10x12, 9x7,
+     8x8, with and without rel_v), the flash forward at twelve: DeAOTL's
+     long-term reads (two passes, key splits; one at DAVIS 1080p, Lq=7,232 over 14,464 keys,
      whose scores take two query slabs), AOT's heads over a long memory
      and the flash_mem hw_check shape, AOTT's training shape (B=16, h=8,
      Lq=Lk=900; all keys live and a partial (B,) live length), a
@@ -32,14 +36,17 @@ to 13); any failure raises and the exit code is non-zero:
      where a running fp32 sum over the keys loses most), a one-pass grid
      that splits its key loop 17 ways (B*h=1, some splits empty) and
      d=dv=64 (the one-pass kernel's 128-column value tile).
-  3. kernel and plain times (CUDA events, median of 2 x 50 runs, in the
-     order plain, kernels, kernels reversed, plain; 2 x 20 at 1080p): the
-     wide and the flat local-window kernels at 64x113 (AOT and DeAOT heads)
-     and at 30x30 (AOT), the flash forward at AOTT's training shape and at
+  3. kernel and plain times (CUDA events around one call, median of
+     2 x 50 runs, in the order plain, kernels, kernels reversed,
+     plain; 2 x 20 at 64x113 and at 1080p): the local-window kernel through
+     its route's wrapper at 30x30 and 64x113 (AOT and DeAOT heads), at
+     DeAOT's head beside F.scaled_dot_product_attention with the dense
+     window bias (rel_bias in the window, -inf elsewhere; no PyTorch call
+     adds AOT's rel_v), the flash forward at AOTT's training shape and at
      DeAOTL's long-term shape with 9,000 and 19,800 keys and at 1080p
      (Lq=7,232, 14,464 keys), each beside F.scaled_dot_product_attention
-     with a boolean live-key mask (the library yardstick; the port never
-     calls it; the backend it picks is printed).
+     with a boolean live-key mask (the library yardsticks; the port never
+     calls them; the backend each picks is printed).
   4. the first main path: AOTT at 465x465 with 10 objects and seeded random
      weights — VOSInferEngine.add_reference_frame, then STEPS frames of
      VOSInferEngine.step on a seeded synthetic video, in the evaluator's
@@ -96,9 +103,9 @@ to 13); any failure raises and the exit code is non-zero:
      `--dataset davis2017 --max_resolution 1080 --ckpt_path test --set
      TEST_DATASET_FULL_RESOLUTION=True`, AOTT: the input is 1009x1793, a
      64x113 = 7,232-token grid (asserted), so every short-term read takes
-     the wide kernel. Launches asserted: the wide kernel once per LSTT
+     the wide route. Launches asserted: the wide route once per LSTT
      forward (each frame, the reference frame included, per block), the
-     flat kernel 0, the flash forward once per LT read of >= 8,192 live
+     flat route 0, the flash forward once per LT read of >= 8,192 live
      keys (the LT schedule gives 0 here: AOTT's LT gap 9999 keeps one
      7,232-token frame). Prints the median and p90 ms/frame of the
      evaluator's per-frame times after EVAL_WARMUP, the peak memory, and
@@ -164,17 +171,24 @@ EVAL_WARMUP = 3           # of the evaluator's timed frames
 PEAK_FP32_ACCURATE_TC_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 
-# kernel name (= its csrc/<name>.cu) -> (module under aot_tpu_torch.ops.
-# kernels, the launch counter its wrapper keeps, the TPU kernel it replaces)
+# kernel name -> (module under aot_tpu_torch.ops.kernels, the launch counter
+# its wrapper keeps, the TPU kernel it replaces, its source csrc/<source>.cu).
+# The two local-window entries are the two routes of ops.attention.
+# local_route (flat up to 2,500 query tokens, wide above), each with its own
+# wrapper and count; both launch the one kernel of local_window_attn_tc.cu.
 KERNELS = {
     "local_window_attn": ("local_window_attn", "LAUNCHES",
-                          "aot_tpu/ops/pallas/local_window_attn.py:414"),
+                          "aot_tpu/ops/pallas/local_window_attn.py:414",
+                          "local_window_attn_tc"),
     "local_window_attn_wide": ("local_window_attn", "WIDE_LAUNCHES",
-                               "aot_tpu/ops/pallas/local_window_attn.py:236"),
+                               "aot_tpu/ops/pallas/local_window_attn.py:236",
+                               "local_window_attn_tc"),
     "flash_attn_fwd": ("flash_attn", "LAUNCHES",
-                       "aot_tpu/ops/pallas/flash_attn_vjp.py:51"),
+                       "aot_tpu/ops/pallas/flash_attn_vjp.py:51",
+                       "flash_attn_fwd"),
     "flash_attn_bwd": ("flash_attn_bwd", "LAUNCHES",
-                       "aot_tpu/ops/pallas/flash_attn_vjp.py:267"),
+                       "aot_tpu/ops/pallas/flash_attn_vjp.py:267",
+                       "flash_attn_bwd"),
 }
 
 
@@ -254,7 +268,16 @@ def check_kernel_numerics(lwa, fa, device):
     """Phase 2: each kernel vs its plain version on the card. Returns the
     max error by kernel name."""
     rng = np.random.RandomState(SEED)
-    # name, B, H, W, heads, d, dv, rel_v, max_dis, kernels
+    worst = check_local_numerics(lwa, device, rng)
+    worst["flash_attn_fwd"] = check_flash_numerics(fa, device, rng)
+    return worst
+
+
+def check_local_numerics(lwa, device, rng):
+    """Phase 2's local-window cases, through each route's wrapper (both
+    launch csrc/local_window_attn_tc.cu). Returns the worst error by route
+    name."""
+    # name, B, H, W, heads, d, dv, rel_v, max_dis, routes
     flat, wide, both = ("flat",), ("wide",), ("flat", "wide")
     local_cases = [
         ("aott_st_b1", 1, 30, 30, 8, 32, 32, True, 7, flat),
@@ -267,6 +290,20 @@ def check_kernel_numerics(lwa, fa, device):
         ("aott_720p_b2", 2, 43, 76, 8, 32, 32, True, 7, wide),
         ("deaot_davis_1080p", 1, 64, 113, 1, 128, 1024, False, 7, wide),
         ("aott_narrower_than_window", 1, 5, 3, 8, 32, 32, True, 7, wide),
+        # a window of one slot; a grid of one row (a 1-row tile, the other
+        # halo rows off the image) at both heads; other radii and widths:
+        # a 64-column value tile with rel_v in two chunks (one pass),
+        # dv = 160 with rel_v (two passes, a partial second value tile),
+        # d = 512 (two passes: q/k channels above 128, 1-row score tiles)
+        # and d = 128 in 4-row one-pass tiles (the largest one-pass block)
+        ("aott_max_dis0", 1, 30, 30, 8, 32, 32, True, 0, both),
+        ("aott_one_row", 1, 1, 40, 8, 32, 32, True, 7, both),
+        ("deaot_one_row", 1, 1, 40, 1, 128, 1024, False, 7, both),
+        ("aott_max_dis3_17x23", 1, 17, 23, 8, 32, 32, True, 3, both),
+        ("d64_dv64_rel_v", 1, 20, 37, 4, 64, 64, True, 5, both),
+        ("d32_dv160_rel_v", 2, 19, 21, 2, 32, 160, True, 7, both),
+        ("d512_two_passes", 1, 9, 21, 2, 512, 64, True, 7, both),
+        ("d128_dv32_4_row_tiles", 1, 64, 113, 2, 128, 32, True, 7, wide),
     ]
     # the TPU narrow kernel's test shapes (tests/test_local_window_kernel.py)
     for hgt, wid in ((10, 12), (9, 7), (8, 8)):
@@ -277,24 +314,25 @@ def check_kernel_numerics(lwa, fa, device):
            "wide": ("local_window_attn_wide",
                     lwa.local_window_attention_wide_cuda)}
     worst = {"local_window_attn": 0.0, "local_window_attn_wide": 0.0}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for name, b, hgt, wid, h, d, dv, rv, m, which in local_cases:
         args = local_inputs(rng, b, hgt, wid, h, d, dv, rv, m, device)
         kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=m, d_att=d)
         want = lwa.local_window_attention_plain(*args, **kw)
+        plan = lwa.launch_plan(b, h, hgt, wid, d, dv, m, sms)
         for kind in which:
             kname, fn = fns[kind]
             got = fn(*args, **kw)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             print(f"phase 2: {kname} {name} B={b} {hgt}x{wid} h={h} d={d} "
-                  f"dv={dv} rel_v={rv} max_dis={m}: max_abs_err {err:.3e}",
-                  flush=True)
+                  f"dv={dv} rel_v={rv} max_dis={m} (passes {plan.passes}, "
+                  f"rows {plan.rows}, blocks {plan.blocks}): max_abs_err "
+                  f"{err:.3e}", flush=True)
             if not err <= KERNEL_TOL:
                 raise AssertionError(
                     f"{kname} {name}: kernel vs plain {err} > {KERNEL_TOL}")
             worst[kname] = max(worst[kname], err)
-
-    worst["flash_attn_fwd"] = check_flash_numerics(fa, device, rng)
     return worst
 
 
@@ -415,6 +453,15 @@ def flash_fwd_bound(b, lq, live, h, d, dv):
     return bound(flops, nbytes)
 
 
+def flash_fwd_bound_live(lq, live, h, d, dv):
+    """flash_fwd_bound over a batch whose elements have their own live key
+    counts `live` (dead keys are never read)."""
+    flops = sum(2.0 * h * lq * n * (d + dv) for n in live)
+    nbytes = 4 * sum(lq * h * (d + dv) + n * h * (d + dv) + h * lq
+                     for n in live)
+    return bound(flops, nbytes)
+
+
 def flash_bwd_bound(b, lq, live, h, d, dv):
     """Its backward: S = QK^T and dP = dO V^T recomputed, dV = P^T dO,
     dQ = dS K, dK = dS^T Q: 2(3d + 2dv) FLOPs per (query, live key, head);
@@ -445,16 +492,34 @@ def sdpa_backend(qs, ks, vs, mask) -> str:
     return SDPBackend(torch._fused_sdp_choice(qs, ks, vs, mask)).name
 
 
-def time_kernels(lwa, fa, device, card: str):
-    """Phase 3. Returns {name: (kernel ms, plain ms, library ms or None,
-    (bound ms, what bounds it))}
-    at the shapes the JSON line reports: the flat kernel at AOTT's 465x465
-    ST shape, the wide one at AOTT's DAVIS 1080p ST shape, the flash
-    forward at DeAOTL's longest LT read."""
+def dense_window_bias(rel_bias, hgt, wid, max_dis):
+    """The (B, h, HW, HW) additive bias under which dense softmax attention
+    is the local-window attention without rel_v: rel_bias at each query's
+    in-image window slots, -inf elsewhere (F.scaled_dot_product_attention's
+    float attn_mask)."""
+    b, h, hw, win2 = rel_bias.shape
+    dev = rel_bias.device
+    r = torch.arange(-max_dis, max_dis + 1, device=dev)
+    ky = torch.arange(hgt, device=dev)[:, None, None, None] + r[:, None]
+    kx = torch.arange(wid, device=dev)[None, :, None, None] + r
+    ok = ((ky >= 0) & (ky < hgt) & (kx >= 0) & (kx < wid)).reshape(hw, win2)
+    # off-image slots go to a spare column HW, cut off afterwards
+    key = torch.where(ok, (ky * wid + kx).reshape(hw, win2), hw)
+    bias = torch.full((b, h, hw, hw + 1), float("-inf"), device=dev)
+    bias.scatter_(3, key.expand(b, h, hw, win2).contiguous(), rel_bias)
+    return bias[..., :hw].contiguous()
+
+
+def time_local(lwa, device, card: str, rng):
+    """Phase 3's local-window timings at the serving shapes, each through
+    its route's wrapper (flat up to 2,500 query tokens, wide above), beside
+    the plain version; at DeAOT's head (no rel_v) also beside
+    F.scaled_dot_product_attention with the dense window bias (the library
+    yardstick, its backend and its error against plain printed). Returns
+    {label: (kernel ms, plain ms, library ms or None, (bound ms, by))}."""
     import torch.nn.functional as F
 
-    rng = np.random.RandomState(SEED + 1)
-    times = {}
+    out = {}
     for label, hgt, wid, h, d, dv, rv in (
             ("AOTT 465x465 ST", 30, 30, 8, 32, 32, True),
             ("DeAOT 465x465 ST", 30, 30, 1, 128, 1024, False),
@@ -462,30 +527,79 @@ def time_kernels(lwa, fa, device, card: str):
             ("DeAOT DAVIS 1080p ST", 64, 113, 1, 128, 1024, False)):
         args = local_inputs(rng, 1, hgt, wid, h, d, dv, rv, 7, device)
         kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=7, d_att=d)
+        wide = hgt * wid > 2500
+        route = "wide" if wide else "flat"
+        kernel = (lwa.local_window_attention_wide_cuda if wide
+                  else lwa.local_window_attention_cuda)
+        fns = {"plain": lambda: lwa.local_window_attention_plain(*args, **kw),
+               "kernel": lambda: kernel(*args, **kw)}
+        lib_note = ""
+        if not rv:
+            q, k, v, rel_bias, _ = args
+            split = lambda x, c: x.reshape(1, -1, h, c).transpose(1, 2)
+            qs, ks, vs = split(q, d).contiguous(), split(k, d).contiguous(), \
+                split(v, dv).contiguous()
+            bias = dense_window_bias(rel_bias, hgt, wid, 7)
+            fns["library"] = lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=bias)
+        t = time_fns(fns, *((20, 3) if wide else ()))
+        if "library" in fns:
+            lib_err = (fns["library"]().transpose(1, 2).reshape(
+                1, hgt * wid, h * dv) - fns["plain"]()).abs().max().item()
+            lib_note = (f", F.scaled_dot_product_attention with the dense "
+                        f"window bias ({sdpa_backend(qs, ks, vs, bias)}) "
+                        f"{t['library']:.4f} ms (vs plain {lib_err:.1e})")
+            del bias
+        b_ms, b_by = local_bound(1, hgt, wid, h, d, dv, rv)
+        plan = lwa.launch_plan(1, h, hgt, wid, d, dv, 7,
+                               torch.cuda.get_device_properties(
+                                   device).multi_processor_count)
+        print(f"phase 3: local window {label} {hgt}x{wid} h={h} d={d} "
+              f"dv={dv} B=1 ({route} route; passes {plan.passes}, rows "
+              f"{plan.rows}, blocks {plan.blocks}): kernel {t['kernel']:.4f} "
+              f"ms, plain {t['plain']:.4f} ms{lib_note}; bound {b_ms:.4f} ms "
+              f"({b_by}) ({card})", flush=True)
+        out[label] = (t["kernel"], t["plain"], t.get("library"), (b_ms, b_by))
+    # the TPU narrow kernel's test shapes (row #3 of PERF.md's table: the
+    # kernel that closes it, on the flat route)
+    for hgt, wid in ((10, 12), (9, 7), (8, 8)):
+        args = local_inputs(rng, 2, hgt, wid, 2, 8, 8, True, 2, device)
+        kw = dict(num_heads=2, size_2d=(hgt, wid), max_dis=2, d_att=8)
         t = time_fns({
             "plain": lambda: lwa.local_window_attention_plain(*args, **kw),
-            "wide": lambda: lwa.local_window_attention_wide_cuda(*args, **kw),
-            "flat": lambda: lwa.local_window_attention_cuda(*args, **kw)},
-            *((20, 3) if hgt * wid > 2500 else ()))
-        b_ms, b_by = local_bound(1, hgt, wid, h, d, dv, rv)
-        print(f"phase 3: local window {label} {hgt}x{wid} h={h} d={d} "
-              f"dv={dv} B=1: wide kernel {t['wide']:.4f} ms, flat kernel "
-              f"{t['flat']:.4f} ms, plain {t['plain']:.4f} ms; bound "
-              f"{b_ms:.4f} ms ({b_by}) ({card})", flush=True)
-        if label == "AOTT 465x465 ST":
-            times["local_window_attn"] = (t["flat"], t["plain"], None,
-                                          (b_ms, b_by))
-        if label == "AOTT DAVIS 1080p ST":
-            times["local_window_attn_wide"] = (t["wide"], t["plain"], None,
-                                               (b_ms, b_by))
+            "kernel": lambda: lwa.local_window_attention_cuda(*args, **kw)})
+        b_ms, b_by = local_bound(2, hgt, wid, 2, 8, 8, True, 2)
+        print(f"phase 3: local window narrow kernel's test shape {hgt}x{wid} "
+              f"B=2 h=2 d=dv=8 max_dis=2 rel_v: kernel {t['kernel']:.4f} ms, "
+              f"plain {t['plain']:.4f} ms; bound {b_ms:.6f} ms ({b_by}) "
+              f"({card})", flush=True)
+    return out
+
+
+def time_kernels(lwa, fa, device, card: str):
+    """Phase 3. Returns {name: (kernel ms, plain ms, library ms or None,
+    (bound ms, what bounds it))}
+    at the shapes the JSON line reports: the flat route at AOTT's 465x465
+    ST shape, the wide route at AOTT's DAVIS 1080p ST shape (no PyTorch
+    call adds rel_v: no library time), the flash forward at DeAOTL's longest
+    LT read."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(SEED + 1)
+    local = time_local(lwa, device, card, rng)
+    times = {"local_window_attn": local["AOTT 465x465 ST"],
+             "local_window_attn_wide": local["AOTT DAVIS 1080p ST"]}
     # the forward at AOTT's training shape, at DeAOTL's LT reads at 465x465
     # (the JSON line's row: Lk = 19,800) and at DAVIS 1080p (two slabs)
     for label, b, lq, lk, h, d, dv in (
             ("AOTT training", 16, 900, 900, 8, 32, 32),
+            ("flash_mem hw_check", 2, 900, 7200, 8, 32, 32),
             ("DeAOTL LT", 1, 900, 9000, 1, 128, 1024),
             ("DeAOTL LT", 1, 900, 19800, 1, 128, 1024),
             ("DeAOTL 1080p LT", 1, 7232, 14464, 1, 128, 1024)):
-        vl = None if b > 1 else lk
+        # hw_check (row #4 of PERF.md's table): live lengths 7,200 / 4,320
+        vl = ([7200, 4320] if label == "flash_mem hw_check"
+              else None if b > 1 else lk)
         q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, vl, device)
         qs, ks, vs, mask = sdpa_args(q, k, v, vl, h, d)
         t = time_fns({
@@ -497,7 +611,9 @@ def time_kernels(lwa, fa, device, card: str):
                    .transpose(1, 2).reshape(b, lq, h * dv)
                    - fa.flash_attention_plain(q, k, v, vl, h, d)[0]
                    ).abs().max().item()
-        b_ms, b_by = flash_fwd_bound(b, lq, lk, h, d, dv)
+        b_ms, b_by = (flash_fwd_bound(b, lq, lk, h, d, dv) if vl is None
+                      or not isinstance(vl, torch.Tensor) else
+                      flash_fwd_bound_live(lq, vl.tolist(), h, d, dv))
         print(f"phase 3: flash_attn_fwd {label} shape B={b} Lq={lq} Lk={lk} "
               f"h={h} d={d} dv={dv} (key splits (output, scores) and query "
               f"slab {fwd_plan(fa, b, lq, lk, h, dv, device)}): kernel "
@@ -1213,7 +1329,8 @@ def main() -> int:
 
     kernels = {name: (importlib.import_module(
         f"aot_tpu_torch.ops.kernels.{mod}"), attr)
-        for name, (mod, attr, _) in KERNELS.items()}
+        for name, (mod, attr, _, _) in KERNELS.items()}
+    sources = list(dict.fromkeys(src for *_, src in KERNELS.values()))
     start = time.perf_counter()
 
     # phase 0
@@ -1230,12 +1347,12 @@ def main() -> int:
 
     # phase 1
     t0 = time.perf_counter()
-    sos = _build.build(*kernels)
-    for load in (lwa._lib, lwa._wide_lib, fa._lib, fab._lib):
+    sos = _build.build(*sources)
+    for load in (lwa._lib, fa._lib, fab._lib):
         load()
     print(f"phase 1: built {', '.join(os.path.relpath(s) for s in sos)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name in kernels:
+    for name in sources:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             print(f"  nvcc {name}: {line}", flush=True)
 
@@ -1288,7 +1405,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"aot_tpu_torch/csrc/{name}.cu",
+        "source": f"aot_tpu_torch/csrc/{KERNELS[name][3]}.cu",
         "replaces": KERNELS[name][2],
         "launches": total[name],
         "max_abs_err": max_err[name],

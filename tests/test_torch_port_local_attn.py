@@ -107,7 +107,7 @@ HEADS = {"aot": (2, 8, 8), "deaot": (1, 16, 64)}   # (heads, d, dv)
 @pytest.mark.parametrize("with_rv", [True, False])
 @pytest.mark.parametrize("hgt,wid,rq", [(10, 12, 4), (9, 7, 8), (8, 8, 8)])
 def test_plain_matches_wide_and_narrow_kernels(hgt, wid, rq, with_rv, head):
-    """The TPU wide kernel (#2, ported as csrc/local_window_attn_wide.cu)
+    """The TPU wide kernel (#2, ported into csrc/local_window_attn_tc.cu)
     and narrow kernel (#3) in interpret mode, at the narrow kernel's test
     grids (tests/test_local_window_kernel.py), an AOT-like and a DeAOT-like
     head."""
