@@ -153,8 +153,9 @@ class DeAOT(AOT):
 
 # --- seeded initialisation ---------------------------------------------------
 # Follows the JAX package's init scheme (xavier-uniform transformer/decoder
-# weights, torch-default uniform biases, kaiming fan-out encoder convs,
-# orthogonal id bank, identity FrozenBN), drawn from an explicit generator.
+# weights, torch-default uniform biases, the encoders' own scheme in
+# `_init_encoder_`, orthogonal id bank, identity FrozenBN), drawn from an
+# explicit generator.
 
 
 def _uniform_(t: torch.Tensor, bound: float, g: torch.Generator) -> None:
@@ -168,10 +169,12 @@ def _trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
     t.erfinv_().mul_(std * math.sqrt(2))
 
 
-def _kaiming_(w: torch.Tensor, fan: int, g: torch.Generator) -> None:
-    """flax variance_scaling(2.0, fan, 'truncated_normal'): the std is
-    divided by the truncated normal's own std so the variance is 2/fan."""
-    _trunc_normal_(w, math.sqrt(2.0 / fan) / 0.87962566103423978, g)
+def _kaiming_(w: torch.Tensor, fan: int, g: torch.Generator,
+              gain: float = 2.0) -> None:
+    """flax variance_scaling(gain, fan, 'truncated_normal'): the std is
+    divided by the truncated normal's own std so the variance is gain/fan
+    (gain 1 is lecun normal)."""
+    _trunc_normal_(w, math.sqrt(gain / fan) / 0.87962566103423978, g)
 
 
 def _xavier_(w: torch.Tensor, g: torch.Generator) -> None:
@@ -193,20 +196,47 @@ def _orthogonal_rows_(w: torch.Tensor, gain: float, g: torch.Generator) -> None:
     w.copy_(gain * qm.reshape(w.shape))
 
 
+def _zero_(b: Optional[torch.Tensor]) -> None:
+    if b is not None:
+        b.zero_()
+
+
+def _init_encoder_(name: str, mod: nn.Module, swin: bool,
+                   g: torch.Generator) -> None:
+    """The JAX encoders' scheme: Swin's linears and patch embedding
+    truncated normal 0.02 (aot_tpu swin.py:23); the dense gates (ResNeSt's
+    fc1/fc2 1x1 convs, MobileNetV3's squeeze-excite) flax's lecun normal;
+    every other conv kaiming fan-out; zero biases, unit LayerNorms."""
+    if isinstance(mod, nn.LayerNorm):
+        mod.weight.fill_(1.0)
+        mod.bias.zero_()
+        return
+    if not isinstance(mod, (nn.Linear, nn.Conv2d)):
+        return
+    w = mod.weight
+    if swin:
+        _trunc_normal_(w, 0.02, g)
+    elif isinstance(mod, nn.Linear) or name.endswith((".fc1", ".fc2")):
+        _kaiming_(w, w[0].numel(), g, gain=1.0)
+    else:                                                 # fan-out
+        _kaiming_(w, w.shape[0] * w[0, 0].numel(), g)
+    _zero_(mod.bias)
+
+
 @torch.no_grad()
 def init_weights(model: AOT, generator: torch.Generator) -> None:
     """Seeded initialisation of every parameter (the model must lie on the
     generator's device)."""
     g = generator
+    swin = hasattr(model.encoder, "patch_embed")
     for name, mod in model.named_modules():
-        if isinstance(mod, nn.Linear):
+        if name.startswith("encoder."):
+            _init_encoder_(name, mod, swin, g)
+        elif isinstance(mod, nn.Linear):
             _xavier_(mod.weight, g)
             _bias_(mod.bias, mod.in_features, g)
         elif not isinstance(mod, nn.Conv2d):
             continue
-        elif name.startswith("encoder."):                 # fan-out
-            _kaiming_(mod.weight, mod.weight.shape[0] * mod.weight[0, 0].numel(),
-                      g)
         elif name.endswith(("activation.conv", "dw_conv.conv")):  # fan-in
             _kaiming_(mod.weight, mod.weight[0].numel(), g)
         elif name.endswith("relative_emb_k"):
@@ -223,13 +253,16 @@ def init_weights(model: AOT, generator: torch.Generator) -> None:
     for name, p in model.named_parameters():
         if name.endswith("relative_emb_v"):
             _uniform_(p, math.sqrt(6.0 / (p.shape[1] + p.shape[2])), g)
+        elif name.endswith("relative_position_bias_table"):   # Swin
+            _trunc_normal_(p, 0.02, g)
 
 
 def build_vos_model(cfg, device=None,
                     generator: Optional[torch.Generator] = None, *,
                     train: bool = False) -> AOT:
     """Construct the model from a Config (aot.py:328-353): AOT or DeAOT
-    (`MODEL_VOS`) with the MobileNetV2 encoder, fp32, weights drawn from
+    (`MODEL_VOS`) with any encoder of `MODEL_ENCODER` (MobileNetV2/V3,
+    ResNet-50/101, ResNeSt-50/101/200/269, Swin-B), fp32, weights drawn from
     `generator` (seed 0 when None), on `device`: cuda:0 by default, which
     raises when there is no card (pass device='cpu' for the CPU).
 

@@ -35,3 +35,25 @@ def conv_kaiming(in_dim: int, out_dim: int, kernel_size: int,
     return nn.Conv2d(in_dim, out_dim, kernel_size, stride=stride,
                      padding=(kernel_size - 1) // 2 * dilation,
                      dilation=dilation, groups=groups, bias=bias)
+
+
+def stem_max_pool() -> nn.MaxPool2d:
+    """The ResNet stem's MaxPool2d(3, 2, padding=1); torch pads with -inf,
+    so the padding never wins (aot_tpu resnet.py:59)."""
+    return nn.MaxPool2d(3, 2, 1)
+
+
+def avd_pool(stride: int) -> nn.AvgPool2d:
+    """ResNeSt's avd pool after the split-attention conv: AvgPool2d(3,
+    stride, 1), the padding counted (aot_tpu resnest.py:55)."""
+    return nn.AvgPool2d(3, stride, 1, count_include_pad=True)
+
+
+def avg_down_pool(stride: int) -> nn.Module:
+    """ResNeSt's avg-down shortcut pool: a stride x stride mean over the
+    cells inside the image, the last window partial on an odd size
+    (ceil mode; aot_tpu resnest.py:91-97). The identity at stride 1."""
+    if stride == 1:
+        return nn.Identity()
+    return nn.AvgPool2d(stride, stride, ceil_mode=True,
+                        count_include_pad=False)

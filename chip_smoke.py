@@ -6,12 +6,15 @@ PyTorch built for CUDA:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-eval [--no-autotune]
+    python3 chip_smoke.py --profile-serve MODEL
 
 The second form profiles phase 12's evaluation and runs nothing else
-(`profile_full_res_eval`).
+(`profile_full_res_eval`); the third profiles a model's serving path, as
+phases 6, 14 and 16 run it, before and after the flash switch
+(`profile_serving`).
 
 Phases (2, 3, 8 and 9, the kernel checks, run first, then 4 to 7, then 10
-to 13); any failure raises and the exit code is non-zero:
+to 18); any failure raises and the exit code is non-zero:
   0. refuse to run without a card; print the card's name and power limit
      (nvidia-smi) and the torch/CUDA versions; TF32 off for matmuls and
      convolutions.
@@ -20,15 +23,17 @@ to 13); any failure raises and the exit code is non-zero:
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the serving paths give it (max abs error <= 1e-4): the
      local-window kernel (csrc/local_window_attn_tc.cu) through the flat
-     route's wrapper at the 465x465 grids and through the wide route's at
+     route's wrapper at the 465x465 grids and Swin-B's 29x29 (464x464; both
+     heads) and through the wide route's at
      the full-resolution grids (64x113 and 68x120 with rel_v, 43x76 at B=2,
      DeAOT's head at 64x113, a 5x3 grid narrower than the window), through
      both at a window of one slot (max_dis 0), a grid of one row at both
      heads, max_dis 3 and 5, a 64-column value tile with rel_v, dv=160 with
      rel_v (two passes), d=512 (two passes, 1-row tiles), d=128 in
      4-row tiles and the TPU narrow kernel's test shapes (10x12, 9x7,
-     8x8, with and without rel_v), the flash forward at twelve: DeAOTL's
-     long-term reads (two passes, key splits; one at DAVIS 1080p, Lq=7,232 over 14,464 keys,
+     8x8, with and without rel_v), the flash forward at fourteen: DeAOTL's
+     long-term reads (two passes, key splits; SwinB_DeAOTL's, Lq=841 over
+     8,410 and 17,661 keys; one at DAVIS 1080p, Lq=7,232 over 14,464 keys,
      whose scores take two query slabs), AOT's heads over a long memory
      and the flash_mem hw_check shape, AOTT's training shape (B=16, h=8,
      Lq=Lk=900; all keys live and a partial (B,) live length), a
@@ -39,11 +44,12 @@ to 13); any failure raises and the exit code is non-zero:
   3. kernel and plain times (CUDA events around one call, median of
      2 x 50 runs, in the order plain, kernels, kernels reversed,
      plain; 2 x 20 at 64x113 and at 1080p): the local-window kernel through
-     its route's wrapper at 30x30 and 64x113 (AOT and DeAOT heads), at
+     its route's wrapper at 30x30, 29x29 and 64x113 (AOT and DeAOT heads), at
      DeAOT's head beside F.scaled_dot_product_attention with the dense
      window bias (rel_bias in the window, -inf elsewhere; no PyTorch call
      adds AOT's rel_v), the flash forward at AOTT's training shape and at
-     DeAOTL's long-term shape with 9,000 and 19,800 keys and at 1080p
+     DeAOTL's long-term shape with 9,000 and 19,800 keys, SwinB_DeAOTL's
+     (Lq=841, 17,661 keys) and at 1080p
      (Lq=7,232, 14,464 keys), each beside F.scaled_dot_product_attention
      with a boolean live-key mask (the library yardsticks; the port never
      calls them; the backend each picks is printed).
@@ -117,7 +123,22 @@ to 13); any failure raises and the exit code is non-zero:
      the same state (reference frame and 2 steps on the card), for 3
      frames of VOSInferEngine.step: grid logits within 1e-3, masks agree on
      >= 99.9%.
- 14. one JSON line with the kernels (launches summed over the main paths;
+ 14. the fifth main path, R50_DeAOTL (ResNet-50 encoder) at 465x465, as 6:
+     the flash switch at step 46 (asserted).
+ 15. as 7, for R50_DeAOTL.
+ 16. the sixth main path, SwinB_DeAOTL (Swin-B encoder,
+     MODEL_ALIGN_CORNERS=False) at 464x464, the evaluator's snap of the
+     465x465 frames for that mode (a 29x29 grid, asserted: 841 tokens, the
+     identity bank at kernel 16 and padding 0), as 6; the flash switch at
+     step 46 (10 LT frames of 841 tokens; asserted).
+ 17. as 7, for SwinB_DeAOTL.
+ 18. each of the 14 model variants (configs/models.py) on the card: built
+     from the seed, its state dict loaded back strictly, the reference
+     frame and VARIANT_STEPS steps at its serving size with 10 objects;
+     per variant the output checks, the grid, the launches by kernel
+     (asserted against the LT schedule), the median ms/frame, the peak
+     memory, and the reference repository's 1xV100 FPS labelled as that.
+ 19. one JSON line with the kernels (launches summed over the main paths;
      each kernel's time, plain time, bound and library time at its main
      shape), the card line, and last the result line {"ok": true,
      "device": {...}}.
@@ -145,6 +166,8 @@ KERNEL_TOL = 1e-4   # fp32, only the summation order differs
 LOGIT_TOL = 1e-3    # ~20 conv layers: cuDNN vs oneDNN summation order
 MASK_AGREE = 0.999  # argmax near-ties may flip a few pixels
 MIN_LT_FRAMES_CPU = 10  # DeAOTL's card-vs-CPU check reads the flash path
+VARIANT_STEPS = 5   # phase 18's steps of each variant, after its reference frame
+PROFILE_STEPS = 10  # --profile-serve: steps in each profiled window
 BWD_TOL = 1e-4      # of each gradient's largest entry: fp32, summation order
 TRAIN_BATCH = 16    # AOTT's training batch (configs TRAIN_BATCH_SIZE)
 TRAIN_T = 5         # DATA_SEQ_LEN
@@ -284,6 +307,9 @@ def check_local_numerics(lwa, device, rng):
         ("aott_st_b2", 2, 30, 30, 8, 32, 32, True, 7, flat),
         ("deaot_st_dv512", 1, 30, 30, 1, 128, 512, False, 7, flat),
         ("deaot_st", 1, 30, 30, 1, 128, 1024, False, 7, flat),
+        # Swin-B's 464x464 grid: 29 is no multiple of the 16-pixel row
+        ("swinb_aot_st_29x29", 1, 29, 29, 8, 32, 32, True, 7, flat),
+        ("swinb_deaot_st_29x29", 1, 29, 29, 1, 128, 1024, False, 7, flat),
         ("aott_ragged_46x80", 1, 46, 80, 8, 32, 32, True, 7, both),
         ("aott_davis_1080p", 1, 64, 113, 8, 32, 32, True, 7, wide),
         ("aott_68x120", 1, 68, 120, 8, 32, 32, True, 7, wide),
@@ -346,6 +372,11 @@ def check_flash_numerics(fa, device, rng):
     the worst error."""
     flash_cases = [  # name, B, Lq, Lk, heads, d, dv, valid_len, ring, q_scale
         ("deaotl_lk9000", 1, 900, 9000, 1, 128, 1024, 9000, 0, 1.0),
+        # SwinB_DeAOTL's LT reads at 464x464: 841 queries over 10 and 21
+        # frames of 841 keys
+        ("swinb_deaotl_lk8410", 1, 841, 8410, 1, 128, 1024, 8410, 0, 1.0),
+        ("swinb_deaotl_lk17661", 1, 841, 17661, 1, 128, 1024, [17661], 0,
+         1.0),
         ("deaotl_1080p_two_slabs", 1, 7232, 14464, 1, 128, 1024, 14464, 0,
          1.0),
         ("deaotl_lk14400_live9900", 1, 900, 14400, 1, 128, 1024, [9900], 0,
@@ -523,6 +554,8 @@ def time_local(lwa, device, card: str, rng):
     for label, hgt, wid, h, d, dv, rv in (
             ("AOTT 465x465 ST", 30, 30, 8, 32, 32, True),
             ("DeAOT 465x465 ST", 30, 30, 1, 128, 1024, False),
+            ("AOT head Swin-B 464x464 ST", 29, 29, 8, 32, 32, True),
+            ("DeAOT Swin-B 464x464 ST", 29, 29, 1, 128, 1024, False),
             ("AOTT DAVIS 1080p ST", 64, 113, 8, 32, 32, True),
             ("DeAOT DAVIS 1080p ST", 64, 113, 1, 128, 1024, False)):
         args = local_inputs(rng, 1, hgt, wid, h, d, dv, rv, 7, device)
@@ -596,6 +629,7 @@ def time_kernels(lwa, fa, device, card: str):
             ("flash_mem hw_check", 2, 900, 7200, 8, 32, 32),
             ("DeAOTL LT", 1, 900, 9000, 1, 128, 1024),
             ("DeAOTL LT", 1, 900, 19800, 1, 128, 1024),
+            ("SwinB_DeAOTL LT", 1, 841, 17661, 1, 128, 1024),
             ("DeAOTL 1080p LT", 1, 7232, 14464, 1, 128, 1024)):
         # hw_check (row #4 of PERF.md's table): live lengths 7,200 / 4,320
         vl = ([7200, 4320] if label == "flash_mem hw_check"
@@ -630,7 +664,7 @@ def time_kernels(lwa, fa, device, card: str):
 
 
 def check_step_outputs(pred, logits, size: int):
-    grid = (size - 1) // 4 + 1
+    grid = (size - 1) // 4 + 1    # the decoder's 4x map: 117 at 465, 116 at 464
     if tuple(pred.shape) != (1, size, size):
         raise AssertionError(f"pred shape {tuple(pred.shape)}")
     if tuple(logits.shape) != (1, grid, grid, OBJECTS + 1):
@@ -652,19 +686,27 @@ def grow_then_step(eng, shadow, state, frame, t, output_size):
     return state, pred, logits
 
 
-def run_main_path(cfg, device, video, mask, steps: int, kernels):
-    """Phases 4 and 6. Returns (model, engine, state, shadow, per-step
+def seeded_model(cfg, device):
+    """The serving model with weights drawn from SEED."""
+    from aot_tpu_torch.models import build_vos_model
+
+    return build_vos_model(cfg, device=device,
+                           generator=torch.Generator().manual_seed(SEED))
+
+
+def run_main_path(model, cfg, video, mask, steps: int, kernels,
+                  size: int = SIZE):
+    """Phases 4, 6, 14, 16 and 18 at `size` x `size` (the video's frames),
+    on the model's device. Returns (engine, state, shadow, per-step
     seconds, per-step flash flags, launches by kernel name)."""
     from aot_tpu_torch.engine import build_infer_engine
-    from aot_tpu_torch.models import build_vos_model
     from aot_tpu_torch.ops.attention import use_flash
 
-    model = build_vos_model(cfg, device=device,
-                            generator=torch.Generator().manual_seed(SEED))
+    device = next(model.parameters()).device
     eng = build_infer_engine(model, cfg)
     frames = torch.from_numpy(video[:steps + 1]).to(device)  # one upload
     ref_mask = torch.from_numpy(mask).to(device)
-    hw = ((SIZE - 1) // 16 + 1) ** 2
+    hw = grid_side(size) ** 2
     shadow = eng.make_shadow()
     # a CPU device only rehearses the loop (no kernel runs there)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -681,17 +723,18 @@ def run_main_path(cfg, device, video, mask, steps: int, kernels):
                                      eng.engine.max_mem_len_ratio))
         t0 = time.perf_counter()
         state, pred, logits = grow_then_step(eng, shadow, state, frames[t], t,
-                                             (SIZE, SIZE))
+                                             (size, size))
         sync()
         seconds.append(time.perf_counter() - t0)
-        check_step_outputs(pred, logits, SIZE)   # outside the timed region
+        check_step_outputs(pred, logits, size)   # outside the timed region
     launches = read_counts(kernels)
-    return model, eng, state, shadow, seconds, flash_steps, launches
+    return eng, state, shadow, seconds, flash_steps, launches
 
 
-def compare_with_cpu(cfg, model, eng, state, shadow, video, label: str):
-    """Phases 5 and 7: the same steps from the same state on the card and
-    on the CPU (plain path). Returns (max logit error, min mask
+def compare_with_cpu(cfg, model, eng, state, shadow, video, label: str,
+                     size: int = SIZE):
+    """Phases 5, 7, 15 and 17: the same steps from the same state on the
+    card and on the CPU (plain path). Returns (max logit error, min mask
     agreement)."""
     from aot_tpu_torch.engine import build_infer_engine
 
@@ -704,9 +747,9 @@ def compare_with_cpu(cfg, model, eng, state, shadow, video, label: str):
         frame = torch.from_numpy(video[t])
         state, pred, logits = grow_then_step(
             eng, shadow, state, frame.to(state.obj_nums.device), t,
-            (SIZE, SIZE))
+            (size, size))
         cpu_state, cpu_pred, cpu_logits = grow_then_step(
-            cpu_eng, cpu_shadow, cpu_state, frame, t, (SIZE, SIZE))
+            cpu_eng, cpu_shadow, cpu_state, frame, t, (size, size))
         err = (logits.cpu() - cpu_logits).abs().max().item()
         agree = (pred.cpu() == cpu_pred).float().mean().item()
         print(f"phase {label}: frame {t}: card vs CPU logits max_abs_err "
@@ -719,12 +762,23 @@ def compare_with_cpu(cfg, model, eng, state, shadow, video, label: str):
     return worst_err, worst_agree
 
 
-def drive(name, cfg, device, video, mask, kernels, card: str, phase: int):
+def grid_side(size: int) -> int:
+    """The 16x token grid's side at a size x size input: 30 at 465 (the
+    align_corners sizes, 16k + 1), 29 at 464 (Swin-B's, 16k)."""
+    return (size - 1) // 16 + 1
+
+
+def drive(name, cfg, device, video, mask, kernels, card: str, phase: int,
+          size: int = SIZE):
     """One main path (phase `phase`) and its card-vs-CPU check (the next
     phase). Returns the launches by kernel name."""
     torch.cuda.reset_peak_memory_stats()
-    model, eng, state, shadow, seconds, flash_steps, launches = run_main_path(
-        cfg, device, video, mask, STEPS, kernels)
+    model = seeded_model(cfg, device)
+    eng, state, shadow, seconds, flash_steps, launches = run_main_path(
+        model, cfg, video, mask, STEPS, kernels, size)
+    grid = tuple(state.shortcuts[-1].shape[-2:])
+    if grid != (grid_side(size),) * 2:
+        raise AssertionError(f"{name}: grid {grid} at {size}x{size}")
     peak = torch.cuda.max_memory_allocated() / 2**20
     layers = cfg.MODEL_LSTT_NUM
     want = {"local_window_attn": (STEPS + 1) * layers,
@@ -737,8 +791,10 @@ def drive(name, cfg, device, video, mask, kernels, card: str, phase: int):
     timed = np.asarray(seconds[WARMUP:]) * 1e3
     flags = np.asarray(flash_steps[WARMUP:])
     frame_ms = float(np.median(timed))
-    print(f"phase {phase}: {name} {SIZE}x{SIZE}, {OBJECTS} objects, fp32, "
-          f"{len(timed)} steps after {WARMUP} warm-up: median "
+    print(f"phase {phase}: {name} {size}x{size} (grid {grid[0]}x{grid[1]}), "
+          f"{OBJECTS} objects, fp32, outputs checked at every step (shape, "
+          f"finite logits, labels in range); {len(timed)} steps after "
+          f"{WARMUP} warm-up: median "
           f"{frame_ms:.3f} ms/frame ({1e3 / frame_ms:.2f} FPS), p90 "
           f"{np.percentile(timed, 90):.3f} ms; LT frames at the end "
           f"{shadow.count}; peak memory {peak:.0f} MiB ({card})", flush=True)
@@ -750,8 +806,81 @@ def drive(name, cfg, device, video, mask, kernels, card: str, phase: int):
                   flush=True)
     if sum(flash_steps) and shadow.count < MIN_LT_FRAMES_CPU:
         raise AssertionError(f"{name}: {shadow.count} LT frames at the end")
-    compare_with_cpu(cfg, model, eng, state, shadow, video, str(phase + 1))
+    compare_with_cpu(cfg, model, eng, state, shadow, video, str(phase + 1),
+                     size)
     return launches
+
+
+# the reference repository's multi-object FPS on one V100 (bench.py:18
+# BASELINES; its MODEL_ZOO), printed beside phase 18's times as that
+V100_FPS = {
+    "aott": 51.4, "aots": 40.0, "aotb": 29.6, "aotl": 18.7,
+    "r50_aotl": 18.0, "r101_aotl": 18.0, "rs101_aotl": 18.0,
+    "swinb_aotl": 12.1,
+    "deaott": 53.4, "deaots": 38.7, "deaotb": 30.4, "deaotl": 24.7,
+    "r50_deaotl": 22.4, "swinb_deaotl": 11.9,
+}
+
+
+def serving_size(cfg) -> int:
+    """The evaluator's snap of the SIZE x SIZE frames for the model: 465
+    with align_corners (16k + 1), 464 without (16k: Swin-B)."""
+    from aot_tpu_torch.data.video_aug import restrict_size
+
+    hgt, wid = restrict_size(SIZE, SIZE, 1.0, None, None,
+                             cfg.MODEL_ALIGN_CORNERS)
+    if hgt != wid:
+        raise AssertionError(f"{SIZE}x{SIZE} snapped to {hgt}x{wid}")
+    return hgt
+
+
+def crop(video, mask, size: int):
+    """The clip's top-left size x size (the 464 serving size of 465 frames)."""
+    return (np.ascontiguousarray(video[:, :, :size, :size]),
+            np.ascontiguousarray(mask[:, :size, :size]))
+
+
+def run_variants(kernels, device, card: str, video, mask):
+    """Phase 18: each of the 14 variants built from the seed, its state
+    dict loaded back strictly, then the reference frame and VARIANT_STEPS
+    steps at its serving size, 10 objects. Returns the launches by kernel
+    name, summed over the variants."""
+    from aot_tpu_torch.configs import build_config
+    from aot_tpu_torch.utils.weights import load_reference_state_dict
+
+    total = {name: 0 for name in kernels}
+    for name, fps in V100_FPS.items():
+        cfg = build_config(stage="pre_ytb_dav", model=name)
+        size = serving_size(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        model = seeded_model(cfg, device)
+        load_reference_state_dict(model, {
+            k: v.cpu().numpy() for k, v in model.state_dict().items()})
+        _, state, _, seconds, flash_steps, launches = run_main_path(
+            model, cfg, *crop(video, mask, size), VARIANT_STEPS, kernels,
+            size)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        grid = tuple(state.shortcuts[-1].shape[-2:])
+        layers = cfg.MODEL_LSTT_NUM
+        want = {"local_window_attn": (VARIANT_STEPS + 1) * layers,
+                "local_window_attn_wide": 0,
+                "flash_attn_fwd": sum(flash_steps) * layers,
+                "flash_attn_bwd": 0}
+        if launches != want or grid != (grid_side(size),) * 2:
+            raise AssertionError(f"{name}: launches {launches} != {want} "
+                                 f"or grid {grid}")
+        for k in kernels:
+            total[k] += launches[k]
+        frame_ms = float(np.median(seconds) * 1e3)
+        print(f"phase 18: {cfg.MODEL_NAME} ({cfg.MODEL_ENCODER}, "
+              f"{layers} blocks) {size}x{size}, grid {grid[0]}x{grid[1]}, "
+              f"outputs checked; launches {launches}; median "
+              f"{frame_ms:.3f} ms/frame ({1e3 / frame_ms:.1f} FPS) over "
+              f"{VARIANT_STEPS} steps; peak memory {peak:.0f} MiB ({card}); "
+              f"the reference repository's 1xV100 FPS {fps}", flush=True)
+        del model, state
+        torch.cuda.empty_cache()
+    return total
 
 
 def check_bwd_numerics(fa, fab, device):
@@ -1289,17 +1418,83 @@ def profile_full_res_eval(card: str, autotune: bool) -> int:
           f"ms/frame; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})",
           flush=True)
+    print_profile(prof, frames,
+                  f"(of {frames}, the reference frame included)")
+    return 0
+
+
+def print_profile(prof, frames: int, label: str) -> float:
+    """A profiled window's kernel time and launches a frame, and the
+    kernels that take the most time. Returns the kernel ms a frame."""
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA"]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
     launches = sum(e.count for e in kernels) / frames
-    print(f"profile: a frame (of {frames}, the reference frame included): "
-          f"{total:.3f} ms of kernels, {launches:.0f} kernel launches",
-          flush=True)
+    print(f"profile: a frame {label}: {total:.3f} ms of kernels, "
+          f"{launches:.0f} kernel launches", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"profile: {e.self_device_time_total / 1e3 / frames:8.3f} "
               f"ms/frame {e.count / frames:8.1f} launches/frame  "
               f"{e.key[:100]}", flush=True)
+    return total
+
+
+def profile_serving(card: str, model_name: str) -> int:
+    """--profile-serve MODEL: where a serving frame's time goes. Runs the
+    model's main path as phases 6, 14 and 16 do (its serving size, 10
+    objects, the evaluator's grow loop), before and after the flash switch
+    a window of PROFILE_STEPS steps timed on the host clock and then one
+    under torch.profiler (which slows the host): the unprofiled ms a
+    frame, kernel ms and launches a frame, the device's busy share (kernel
+    time over the unprofiled frame) and the kernels that take the most
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aot_tpu_torch.configs import build_config
+    from aot_tpu_torch.engine import build_infer_engine
+
+    cfg = build_config(stage="pre_ytb_dav", model=model_name)
+    size = serving_size(cfg)
+    device = torch.device("cuda", 0)
+    video, mask = crop(*synthetic_video(SEED, STEPS + 1, SIZE, OBJECTS),
+                       size)
+    eng = build_infer_engine(seeded_model(cfg, device), cfg)
+    frames = torch.from_numpy(video).to(device)
+    shadow = eng.make_shadow()
+    state = eng.add_reference_frame(frames[0],
+                                    torch.from_numpy(mask).to(device), OBJECTS)
+    shadow.add_ref(0)
+    t = 0
+
+    def window(n: int):
+        """n steps, each ending in a synchronize; their median ms."""
+        nonlocal state, t
+        seconds = []
+        for _ in range(n):
+            t += 1
+            t0 = time.perf_counter()
+            state, _, _ = grow_then_step(eng, shadow, state, frames[t], t,
+                                         (size, size))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return float(np.median(seconds) * 1e3)
+
+    # the flash switch comes at step 46 (10 LT frames of 841 or 900 keys)
+    for label, start in (("before the flash switch", 20),
+                         ("after the flash switch", 50)):
+        window(start - t)
+        host = window(PROFILE_STEPS)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiled = window(PROFILE_STEPS)
+        print(f"profile: {cfg.MODEL_NAME} {size}x{size} {label} ({shadow.count}"
+              f" LT frames): median {host:.3f} ms/frame over steps "
+              f"{t - 2 * PROFILE_STEPS + 1}-{t - PROFILE_STEPS}, "
+              f"{profiled:.3f} under the profiler over the next "
+              f"{PROFILE_STEPS} ({card})", flush=True)
+        kernel = print_profile(prof, PROFILE_STEPS, label)
+        print(f"profile: {label}: the card busy {kernel / host:.0%} of the "
+              f"unprofiled median frame", flush=True)
     return 0
 
 
@@ -1313,6 +1508,9 @@ def main() -> int:
     parser.add_argument("--no-autotune", action="store_true",
                         help="with --profile-eval: cuDNN's default "
                              "convolution algorithms")
+    parser.add_argument("--profile-serve", metavar="MODEL",
+                        help="profile MODEL's serving path (e.g. "
+                             "r50_deaotl) instead of running the phases")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this check runs on the "
@@ -1344,6 +1542,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     if args.profile_eval:
         return profile_full_res_eval(card, not args.no_autotune)
+    if args.profile_serve:
+        return profile_serving(card, args.profile_serve)
 
     # phase 1
     t0 = time.perf_counter()
@@ -1397,6 +1597,24 @@ def main() -> int:
     compare_full_res_with_cpu(ev, device)
     print(f"phases 12, 13 done at {time.perf_counter() - start:.1f} s",
           flush=True)
+    del ev
+
+    # phases 14-17: the two DeAOT flagships, then phase 18: all 14 variants
+    for i, (name, model) in enumerate((("R50_DeAOTL", "r50_deaotl"),
+                                       ("SwinB_DeAOTL", "swinb_deaotl"))):
+        cfg = build_config(stage="pre_ytb_dav", model=model)
+        size = serving_size(cfg)
+        launches = drive(name, cfg, device, *crop(video, mask, size),
+                         kernels, card, 14 + 2 * i, size)
+        if launches["flash_attn_fwd"] == 0:
+            raise AssertionError(f"{name} never reached the flash kernel")
+        for k in kernels:
+            total[k] += launches[k]
+    print(f"phases 14-17 done at {time.perf_counter() - start:.1f} s",
+          flush=True)
+    for k, n in run_variants(kernels, device, card, video, mask).items():
+        total[k] += n
+    print(f"phase 18 done at {time.perf_counter() - start:.1f} s", flush=True)
 
     for mod in sys.modules:
         if mod.split(".")[0] in ("jax", "flax", "aot_tpu"):
