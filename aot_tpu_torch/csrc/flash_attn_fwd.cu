@@ -75,14 +75,98 @@
 // training shape (B = 16, h = 8, Lq = Lk = 900, d = dv = 32) the bound is
 // 0.080 ms and the kernel runs 0.37-0.44 ms. wgmma with TMA and warp
 // specialisation is the next step.
+//
+// bf16 (entry flash_attn_fwd_bf16; bf16 serving, TEST_DTYPE=bfloat16). The
+// same kernels instantiated for bf16 q, k, v and out compute what
+// `_fwd_kernel` computes at bf16 (flash_attn_vjp.py:41-93): S = Q K^T by
+// mma.sync m16n8k16 on the bf16 operands into fp32 accumulators (each
+// product of two bf16 values is exact in fp32), then scaled; the running
+// max, sum and lse in fp32; P rounded to bf16 (`p.astype(v.dtype)`, :85)
+// and P V by bf16 mma.sync into fp32; the output rounded to bf16 once.
+// In the one pass the score accumulators of two 8-key blocks are exactly
+// the A fragment of a 16-key m16n8k16 product (rows g and g + 8, keys 2t
+// and 2t + 1 of each block), so P is packed into bf16 pairs in registers
+// with no permutation; the two-pass form rounds exp(S - lse) from the
+// scores scratch. Tiles hold bf16 in shared memory (half the bytes of the
+// fp32 tiles), 8 elements a 16-byte cp.async, so d and dv are multiples
+// of 8. One bf16 product replaces the three TF32 ones: the bound is
+// 2x the FLOPs at 989 TFLOP/s and half the operand bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "tf32x3.cuh"
 
 namespace {
 
 using namespace tf32x3;
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool kIsBf16 = std::is_same_v<T, bf16>;
+
+// the low half of a 32-bit mma operand register holds the lower index
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a b, m16n8k16 on bf16 operands, fp32 accumulators. Fragments
+// (g = lane / 4, t = lane % 4; each register two bf16, the lower index
+// low): A a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t+8..), a3
+// (g + 8, 2t+8..); B b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8.., n = g); C as
+// m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Store two adjacent output columns (fp32, or rounded to bf16)
+__device__ __forceinline__ void store2(void* out, long long i, bool as_bf16,
+                                       float x, float y) {
+  if (as_bf16)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + i) =
+        __floats2bfloat162_rn(x, y);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) =
+        make_float2(x, y);
+}
+
+// tf32x3::stage for fp32 tiles; for bf16, 8 elements a 16-byte copy
+// (COLS a multiple of 8, columns at or beyond c_end zero: c_end a
+// multiple of 8)
+template <typename T, int ROWS, int COLS, int LD, int THREADS>
+__device__ __forceinline__ void stage_t(T* dst, const T* src, long long ld,
+                                        int r_end, int c_end) {
+  if constexpr (!kIsBf16<T>) {
+    stage<ROWS, COLS, LD, THREADS>(dst, src, ld, r_end, c_end);
+  } else {
+    constexpr int kC8 = COLS / 8;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * kC8; i += THREADS) {
+      const int r = i / kC8;
+      const int c = (i % kC8) * 8;
+      const bool ok = r < r_end && c < c_end;
+      cp_async16(reinterpret_cast<float*>(dst + r * LD + c),
+                 reinterpret_cast<const float*>(ok ? src + r * ld + c : src),
+                 ok);
+    }
+  }
+}
 
 constexpr int kBQ = 64;          // queries per block, 16 per warp
 constexpr int kThreads = 128;    // 4 warps
@@ -91,12 +175,14 @@ constexpr float kNegInf = -1e30f;
 constexpr float kEmptyLse = -1e29f;   // lse below this: no live key
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <typename T>
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
+  const T* q;
+  const T* k;
+  const T* v;
   const int* valid;
-  float* out;              // (B, Lq, h*dv), or the out partials of a split
+  void* out;               // (B, Lq, h*dv) in T, or the fp32 out partials
+                           // of a split
   float* lse;              // (B*h, Lq), or the lse partials
   long long out_split;     // floats between two splits' partials of out
   long long lse_split;     // ... of lse
@@ -117,18 +203,22 @@ struct Args {
   float* stat_l;
   int score_splits;
   int score_tiles_per_split;
+  int out_bf16;            // `out` holds bf16 (not the fp32 partials)
 };
 
 // D: q/k channels padded to 32, 128 or 256 (zero-filled); DVT: value
-// columns a block; BK: keys a tile.
-template <int D, int DVT, int BK>
+// columns a block; BK: keys a tile. Strides in elements of T.
+template <typename T, int D, int DVT, int BK>
 struct Tiles {
-  static constexpr int kLdQ = D + 4;     // row strides = 4 mod 32 words:
-  static constexpr int kLdV = DVT + 4;   // fragment reads hit 32 banks
+  // fp32: row strides = 4 mod 32 words, fragment reads hit 32 banks;
+  // bf16: 16 bytes of padding, rows stay 16-byte aligned
+  static constexpr int kPad = kIsBf16<T> ? 8 : 4;
+  static constexpr int kLdQ = D + kPad;
+  static constexpr int kLdV = DVT + kPad;
   static constexpr int kQ = kBQ * kLdQ;
   static constexpr int kK = BK * kLdQ;
   static constexpr int kV = BK * kLdV;
-  static constexpr size_t kSmem = sizeof(float) * (kQ + 2 * (kK + kV));
+  static constexpr size_t kSmem = sizeof(T) * (kQ + 2 * (kK + kV));
 };
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -141,16 +231,17 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D, int DVT, int BK>
-__global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args a) {
-  using T = Tiles<D, DVT, BK>;
+template <typename E, int D, int DVT, int BK>
+__global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args<E> a) {
+  using T = Tiles<E, D, DVT, BK>;
   constexpr int kNB = BK / 8;     // 8-key blocks of a tile
   constexpr int kNV = DVT / 8;    // 8-column blocks of a value tile
-  constexpr bool kApart = D > 32; // the score's hi.hi term summed apart
+  // fp32: the score's hi.hi term summed apart
+  constexpr bool kApart = D > 32 && !kIsBf16<E>;
   extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);
-  float* s_k = s_q + T::kQ;       // two stages
-  float* s_v = s_k + 2 * T::kK;   // two stages
+  E* s_q = reinterpret_cast<E*>(smem4);
+  E* s_k = s_q + T::kQ;           // two stages
+  E* s_v = s_k + 2 * T::kK;       // two stages
 
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
@@ -166,19 +257,19 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args a) {
   const int k_end = min(n_live, k_begin + a.tiles_per_split * BK);
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  const float* q_base = a.q + b * a.q_sb + (long long)head * a.d + q0 * a.q_sl;
-  const float* k_base = a.k + b * a.k_sb + (long long)head * a.d;
-  const float* v_base = a.v + b * a.v_sb + (long long)head * a.dv;
+  const E* q_base = a.q + b * a.q_sb + (long long)head * a.d + q0 * a.q_sl;
+  const E* k_base = a.k + b * a.k_sb + (long long)head * a.d;
+  const E* v_base = a.v + b * a.v_sb + (long long)head * a.dv;
 
-  stage<kBQ, D, T::kLdQ, kThreads>(s_q, q_base, a.q_sl, a.lq - q0, a.d);
+  stage_t<E, kBQ, D, T::kLdQ, kThreads>(s_q, q_base, a.q_sl, a.lq - q0, a.d);
   auto load_tile = [&](int i) {   // key tile i of this split -> stage i & 1
     const int k0 = k_begin + i * BK;
-    stage<BK, D, T::kLdQ, kThreads>(s_k + (i & 1) * T::kK,
-                                    k_base + k0 * a.k_sl, a.k_sl, k_end - k0,
-                                    a.d);
-    stage<BK, DVT, T::kLdV, kThreads>(s_v + (i & 1) * T::kV,
-                                      v_base + k0 * a.v_sl, a.v_sl,
-                                      k_end - k0, a.dv);
+    stage_t<E, BK, D, T::kLdQ, kThreads>(s_k + (i & 1) * T::kK,
+                                         k_base + k0 * a.k_sl, a.k_sl,
+                                         k_end - k0, a.d);
+    stage_t<E, BK, DVT, T::kLdV, kThreads>(s_v + (i & 1) * T::kV,
+                                           v_base + k0 * a.v_sl, a.v_sl,
+                                           k_end - k0, a.dv);
   };
   if (n_tiles > 0) load_tile(0);
   cp_async_commit();
@@ -193,7 +284,7 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args a) {
   // a warp whose rows all lie beyond Lq skips the products (warp-uniform)
   const bool active = q0 + warp * 16 < a.lq;
   const int k_steps = (a.d + 7) / 8;
-  const float* q_frag = s_q + (warp * 16 + g) * T::kLdQ + t;
+  const E* q_frag = s_q + (warp * 16 + g) * T::kLdQ + t;
 
   for (int i = 0; i < n_tiles; ++i) {
     if (i + 1 < n_tiles) load_tile(i + 1);
@@ -201,8 +292,8 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args a) {
     cp_async_wait<1>();   // tile i (and the q tile) have landed
     __syncthreads();
     if (active) {
-      const float* tk = s_k + (i & 1) * T::kK;
-      const float* tv = s_v + (i & 1) * T::kV;
+      const E* tk = s_k + (i & 1) * T::kK;
+      const E* tv = s_v + (i & 1) * T::kV;
       float s[kNB][4], s_small[kApart ? kNB : 1][4];
 #pragma unroll
       for (int n = 0; n < kNB; ++n)
@@ -215,19 +306,36 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args a) {
           for (int e = 0; e < 4; ++e) s_small[n][e] = 0.f;
       }
       // S = Q K^T: A = q rows, B(k = channel, n = key) = k rows
+      if constexpr (kIsBf16<E>) {
 #pragma unroll
-      for (int ks = 0; ks < D / 8; ++ks) {
-        if (ks < k_steps) {
-          const float* qa = q_frag + ks * 8;
-          const FragA fa = frag_a(qa[0], qa[8 * T::kLdQ], qa[4],
-                                  qa[8 * T::kLdQ + 4]);
+        for (int ks = 0; ks < D / 16; ++ks) {
+          if (ks * 2 < k_steps) {
+            const E* qa = q_frag + ks * 16 + t;   // column 2t of the step
+            const uint32_t fa[4] = {ld_pair(qa), ld_pair(qa + 8 * T::kLdQ),
+                                    ld_pair(qa + 8),
+                                    ld_pair(qa + 8 * T::kLdQ + 8)};
 #pragma unroll
-          for (int n = 0; n < kNB; ++n) {
-            const float* kb = tk + (n * 8 + g) * T::kLdQ + ks * 8 + t;
-            if constexpr (kApart)
-              mma3_apart(s[n], s_small[n], fa, frag_b(kb[0], kb[4]));
-            else
-              mma3(s[n], fa, frag_b(kb[0], kb[4]));
+            for (int n = 0; n < kNB; ++n) {
+              const E* kb = tk + (n * 8 + g) * T::kLdQ + ks * 16 + 2 * t;
+              mma_bf16(s[n], fa, ld_pair(kb), ld_pair(kb + 8));
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+          if (ks < k_steps) {
+            const E* qa = q_frag + ks * 8;
+            const FragA fa = frag_a(qa[0], qa[8 * T::kLdQ], qa[4],
+                                    qa[8 * T::kLdQ + 4]);
+#pragma unroll
+            for (int n = 0; n < kNB; ++n) {
+              const E* kb = tk + (n * 8 + g) * T::kLdQ + ks * 8 + t;
+              if constexpr (kApart)
+                mma3_apart(s[n], s_small[n], fa, frag_b(kb[0], kb[4]));
+              else
+                mma3(s[n], fa, frag_b(kb[0], kb[4]));
+            }
           }
         }
       }
@@ -273,13 +381,34 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args a) {
       for (int n = 0; n < kNV; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+      if constexpr (kIsBf16<E>) {
+        // P rounded to bf16: blocks 2kb and 2kb + 1 are the 16 keys of
+        // one product's A fragment
 #pragma unroll
-      for (int kb = 0; kb < kNB; ++kb) {
-        const FragA fp = a_from_acc(s[kb]);
-        const float* vb = tv + (kb * 8 + 2 * t) * T::kLdV + g;
+        for (int kb = 0; kb < kNB / 2; ++kb) {
+          const float* p0 = s[2 * kb];
+          const float* p1 = s[2 * kb + 1];
+          const uint32_t fp[4] = {pack_bf16(p0[0], p0[1]),
+                                  pack_bf16(p0[2], p0[3]),
+                                  pack_bf16(p1[0], p1[1]),
+                                  pack_bf16(p1[2], p1[3])};
+          const E* vb = tv + (kb * 16 + 2 * t) * T::kLdV + g;
 #pragma unroll
-        for (int n = 0; n < kNV; ++n)
-          mma3(pv[n], fp, frag_b(vb[n * 8], vb[T::kLdV + n * 8]));
+          for (int n = 0; n < kNV; ++n)
+            mma_bf16(pv[n], fp,
+                     pack_bf16(vb[n * 8], vb[T::kLdV + n * 8]),
+                     pack_bf16(vb[8 * T::kLdV + n * 8],
+                               vb[9 * T::kLdV + n * 8]));
+        }
+      } else {
+#pragma unroll
+        for (int kb = 0; kb < kNB; ++kb) {
+          const FragA fp = a_from_acc(s[kb]);
+          const E* vb = tv + (kb * 8 + 2 * t) * T::kLdV + g;
+#pragma unroll
+          for (int n = 0; n < kNV; ++n)
+            mma3(pv[n], fp, frag_b(vb[n * 8], vb[T::kLdV + n * 8]));
+        }
       }
 #pragma unroll
       for (int n = 0; n < kNV; ++n) {
@@ -295,22 +424,22 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args a) {
 
   if (!active) return;
   const long long o_stride = (long long)a.heads * a.dv;
-  float* out = a.out + split * a.out_split;
   float* lse = a.lse + split * a.lse_split + (long long)bh * a.lq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= a.lq) continue;
     const bool empty = l[r] == 0.f;
-    float* o_row = out + ((long long)b * a.lq + row) * o_stride +
-                   (long long)head * a.dv;
+    const long long o_row = split * a.out_split +
+                            ((long long)b * a.lq + row) * o_stride +
+                            (long long)head * a.dv;
 #pragma unroll
     for (int n = 0; n < kNV; ++n) {
       const int col = n * 8 + 2 * t;   // dv % 4 == 0: both columns or none
       if (col < a.dv)
-        *reinterpret_cast<float2*>(o_row + col) =
-            empty ? make_float2(0.f, 0.f)
-                  : make_float2(acc[n][2 * r] / l[r], acc[n][2 * r + 1] / l[r]);
+        store2(a.out, o_row + col, a.out_bf16,
+               empty ? 0.f : acc[n][2 * r] / l[r],
+               empty ? 0.f : acc[n][2 * r + 1] / l[r]);
     }
     if (t == 0) lse[row] = empty ? kNegInf : m[r] + logf(l[r]);
   }
@@ -322,9 +451,9 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args a) {
 // in any split gives out 0 and lse -1e30.
 __global__ void __launch_bounds__(256)
 merge_kernel(const float* __restrict__ part, const float* __restrict__ part_lse,
-             float* __restrict__ out, float* __restrict__ lse, int splits,
+             void* __restrict__ out, float* __restrict__ lse, int splits,
              int heads, int lq, int dv, long long n4, long long out_split,
-             long long lse_split) {
+             long long lse_split, int out_bf16) {
   const int hd = heads * dv;
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4;
        i += (long long)gridDim.x * 256) {
@@ -351,7 +480,8 @@ merge_kernel(const float* __restrict__ part, const float* __restrict__ part_lse,
         o.w = fmaf(w, x.w, o.w);
       }
     }
-    *reinterpret_cast<float4*>(out + e) = o;
+    store2(out, e, out_bf16, o.x, o.y);
+    store2(out, e + 2, out_bf16, o.z, o.w);
     if (col % dv == 0) lse[li] = total;
   }
 }
@@ -366,21 +496,21 @@ merge_kernel(const float* __restrict__ part, const float* __restrict__ part_lse,
 constexpr int kBKS = 64;   // keys a tile, pass 1
 constexpr int kBKP = 32;   // keys a tile, pass 2
 
-template <int D>
+template <typename E, int D>
 struct ScoreTiles {
-  static constexpr int kLd = D + 4;
+  static constexpr int kLd = D + (kIsBf16<E> ? 8 : 4);
   static constexpr int kQ = kBQ * kLd;
   static constexpr int kK = kBKS * kLd;
-  static constexpr size_t kSmem = sizeof(float) * (kQ + 2 * kK);
+  static constexpr size_t kSmem = sizeof(E) * (kQ + 2 * kK);
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
-  using T = ScoreTiles<D>;
+template <typename E, int D>
+__global__ void __launch_bounds__(kThreads, 2) score_kernel(Args<E> a) {
+  using T = ScoreTiles<E, D>;
   constexpr int kNB = kBKS / 8;
   extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);
-  float* s_k = s_q + T::kQ;       // two stages
+  E* s_q = reinterpret_cast<E*>(smem4);
+  E* s_k = s_q + T::kQ;           // two stages
 
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
@@ -396,14 +526,14 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
   const int k_end = min(n_live, k_begin + a.score_tiles_per_split * kBKS);
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBKS - 1) / kBKS : 0;
 
-  const float* q_base = a.q + b * a.q_sb + (long long)head * a.d + q0 * a.q_sl;
-  const float* k_base = a.k + b * a.k_sb + (long long)head * a.d;
-  stage<kBQ, D, T::kLd, kThreads>(s_q, q_base, a.q_sl, a.lq - q0, a.d);
+  const E* q_base = a.q + b * a.q_sb + (long long)head * a.d + q0 * a.q_sl;
+  const E* k_base = a.k + b * a.k_sb + (long long)head * a.d;
+  stage_t<E, kBQ, D, T::kLd, kThreads>(s_q, q_base, a.q_sl, a.lq - q0, a.d);
   auto load_tile = [&](int i) {
     const int k0 = k_begin + i * kBKS;
-    stage<kBKS, D, T::kLd, kThreads>(s_k + (i & 1) * T::kK,
-                                     k_base + k0 * a.k_sl, a.k_sl, k_end - k0,
-                                     a.d);
+    stage_t<E, kBKS, D, T::kLd, kThreads>(s_k + (i & 1) * T::kK,
+                                          k_base + k0 * a.k_sl, a.k_sl,
+                                          k_end - k0, a.d);
   };
   if (n_tiles > 0) load_tile(0);
   cp_async_commit();
@@ -411,7 +541,7 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const bool active = q0 + warp * 16 < a.lq;
   const int k_steps = (a.d + 7) / 8;
-  const float* q_frag = s_q + (warp * 16 + g) * T::kLd + t;
+  const E* q_frag = s_q + (warp * 16 + g) * T::kLd + t;
   const int row0 = q0 + warp * 16 + g;
   float* s_row0 =
       a.scores + ((long long)bh * a.slab + row0 - a.row0) * a.lds;
@@ -423,22 +553,39 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
     cp_async_wait<1>();
     __syncthreads();
     if (active) {
-      const float* tk = s_k + (i & 1) * T::kK;
+      const E* tk = s_k + (i & 1) * T::kK;
       float s[kNB][4], s_small[kNB][4];
 #pragma unroll
       for (int n = 0; n < kNB; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = s_small[n][e] = 0.f;
+      if constexpr (kIsBf16<E>) {
 #pragma unroll
-      for (int ks = 0; ks < D / 8; ++ks) {
-        if (ks < k_steps) {
-          const float* qa = q_frag + ks * 8;
-          const FragA fa = frag_a(qa[0], qa[8 * T::kLd], qa[4],
-                                  qa[8 * T::kLd + 4]);
+        for (int ks = 0; ks < D / 16; ++ks) {
+          if (ks * 2 < k_steps) {
+            const E* qa = q_frag + ks * 16 + t;   // column 2t of the step
+            const uint32_t fa[4] = {ld_pair(qa), ld_pair(qa + 8 * T::kLd),
+                                    ld_pair(qa + 8),
+                                    ld_pair(qa + 8 * T::kLd + 8)};
 #pragma unroll
-          for (int n = 0; n < kNB; ++n) {
-            const float* kb = tk + (n * 8 + g) * T::kLd + ks * 8 + t;
-            mma3_apart(s[n], s_small[n], fa, frag_b(kb[0], kb[4]));
+            for (int n = 0; n < kNB; ++n) {
+              const E* kb = tk + (n * 8 + g) * T::kLd + ks * 16 + 2 * t;
+              mma_bf16(s[n], fa, ld_pair(kb), ld_pair(kb + 8));
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+          if (ks < k_steps) {
+            const E* qa = q_frag + ks * 8;
+            const FragA fa = frag_a(qa[0], qa[8 * T::kLd], qa[4],
+                                    qa[8 * T::kLd + 4]);
+#pragma unroll
+            for (int n = 0; n < kNB; ++n) {
+              const E* kb = tk + (n * 8 + g) * T::kLd + ks * 8 + t;
+              mma3_apart(s[n], s_small[n], fa, frag_b(kb[0], kb[4]));
+            }
           }
         }
       }
@@ -500,22 +647,22 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
 // statistics (so no running rescale). Each 32-key tile's P V is summed apart and added to
 // the output in fp32. S and V tiles go through a cp.async ring; P enters
 // the product as A fragments read from the S tile in shared memory.
-template <int DVT>
+template <typename E, int DVT>
 struct PvTiles {
   static constexpr int kLdS = kBKP + 4;   // = 4 mod 32: A reads conflict-free
   static constexpr int kLdV = DVT + 8;    // = 8 mod 32: B reads (rows t, t + 4)
-  static constexpr int kS = kBQ * kLdS;
-  static constexpr int kV = kBKP * kLdV;
-  static constexpr size_t kSmem = sizeof(float) * 2 * (kS + kV);
+  static constexpr int kS = kBQ * kLdS;   // fp32 scores
+  static constexpr int kV = kBKP * kLdV;  // values in E
+  static constexpr size_t kSmem = 2 * (sizeof(float) * kS + sizeof(E) * kV);
 };
 
-template <int DVT>
-__global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args a) {
-  using T = PvTiles<DVT>;
+template <typename E, int DVT>
+__global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args<E> a) {
+  using T = PvTiles<E, DVT>;
   constexpr int kNV = DVT / 8;
   extern __shared__ float4 smem4[];
-  float* s_s = reinterpret_cast<float*>(smem4);   // two stages
-  float* s_v = s_s + 2 * T::kS;                    // two stages
+  float* s_s = reinterpret_cast<float*>(smem4);       // two stages
+  E* s_v = reinterpret_cast<E*>(s_s + 2 * T::kS);     // two stages
 
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
@@ -536,14 +683,14 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args a) {
   // the slab is a multiple of 64 rows: this tile's rows lie in it
   const float* s_base =
       a.scores + ((long long)bh * a.slab + q0 - a.row0) * a.lds;
-  const float* v_base = a.v + b * a.v_sb + (long long)head * a.dv + c0;
+  const E* v_base = a.v + b * a.v_sb + (long long)head * a.dv + c0;
   auto load_tile = [&](int i) {
     const int k0 = k_begin + i * kBKP;
     stage<kBQ, kBKP, T::kLdS, kThreads>(s_s + (i & 1) * T::kS, s_base + k0,
                                         a.lds, a.lq - q0, k_end - k0);
-    stage<kBKP, DVT, T::kLdV, kThreads>(s_v + (i & 1) * T::kV,
-                                        v_base + k0 * a.v_sl, a.v_sl,
-                                        k_end - k0, a.dv - c0);
+    stage_t<E, kBKP, DVT, T::kLdV, kThreads>(s_v + (i & 1) * T::kV,
+                                             v_base + k0 * a.v_sl, a.v_sl,
+                                             k_end - k0, a.dv - c0);
   };
   if (n_tiles > 0) load_tile(0);
   cp_async_commit();
@@ -593,8 +740,39 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args a) {
       for (int n = 0; n < kNV; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+      if constexpr (kIsBf16<E>) {
+        // P = exp(S - lse) rounded to bf16, 16 keys a product: row g or
+        // g + 8 (r), keys 2t, 2t + 1 (+ 8 for the upper half)
+        const float* ts = s_s + (i & 1) * T::kS + (warp * 16 + g) * T::kLdS;
+        const E* tv = s_v + (i & 1) * T::kV + 2 * t * T::kLdV + g;
+#pragma unroll
+        for (int kb = 0; kb < kBKP / 16; ++kb) {
+          float p[2][4];      // [r][key 2t, 2t + 1, 2t + 8, 2t + 9]
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = kb * 16 + 2 * t + (j & 1) + 8 * (j >> 1);
+            const bool k_ok = k0 + c < k_end;
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              p[r][j] = (k_ok && live_r[r])
+                            ? exp2f(fmaf(ts[r * 8 * T::kLdS + c], kLog2e,
+                                         -lse2[r]))
+                            : 0.f;
+          }
+          const uint32_t fp[4] = {pack_bf16(p[0][0], p[0][1]),
+                                  pack_bf16(p[1][0], p[1][1]),
+                                  pack_bf16(p[0][2], p[0][3]),
+                                  pack_bf16(p[1][2], p[1][3])};
+          const E* vb = tv + kb * 16 * T::kLdV;
+#pragma unroll
+          for (int n = 0; n < kNV; ++n)
+            mma_bf16(pv[n], fp, pack_bf16(vb[n * 8], vb[T::kLdV + n * 8]),
+                     pack_bf16(vb[8 * T::kLdV + n * 8],
+                               vb[9 * T::kLdV + n * 8]));
+        }
+      } else {
       const float* ts = s_s + (i & 1) * T::kS + (warp * 16 + g) * T::kLdS + t;
-      const float* tv = s_v + (i & 1) * T::kV + t * T::kLdV + g;
+      const E* tv = s_v + (i & 1) * T::kV + t * T::kLdV + g;
 #pragma unroll
       for (int kb = 0; kb < kBKP / 8; ++kb) {
         // P = exp(S - lse) over live keys; unread scores are never selected
@@ -606,10 +784,11 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args a) {
         const float p2 = (k_hi && live_r[0]) ? exp2f(fmaf(ps[4], kLog2e, -lse2[0])) : 0.f;
         const float p3 = (k_hi && live_r[1]) ? exp2f(fmaf(ps[8 * T::kLdS + 4], kLog2e, -lse2[1])) : 0.f;
         const FragA fp = frag_a(p0, p1, p2, p3);
-        const float* vb = tv + kb * 8 * T::kLdV;
+        const E* vb = tv + kb * 8 * T::kLdV;
 #pragma unroll
         for (int n = 0; n < kNV; ++n)
           mma3(pv[n], fp, frag_b(vb[n * 8], vb[4 * T::kLdV + n * 8]));
+      }
       }
       // fold once per tile in fp32: the mma's own accumulation rounds
       // toward zero at every step (see tf32x3::mma3_apart)
@@ -624,39 +803,42 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args a) {
 
   if (!active) return;
   const long long o_stride = (long long)a.heads * a.dv;
-  float* out = a.out + split * a.out_split;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= a.lq) continue;
-    float* o_row = out + ((long long)b * a.lq + row) * o_stride +
-                   (long long)head * a.dv + c0;
+    const long long o_row = split * a.out_split +
+                            ((long long)b * a.lq + row) * o_stride +
+                            (long long)head * a.dv + c0;
 #pragma unroll
     for (int n = 0; n < kNV; ++n) {
       const int col = n * 8 + 2 * t;
       if (c0 + col < a.dv)
-        *reinterpret_cast<float2*>(o_row + col) =
-            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+        store2(a.out, o_row + col, a.out_bf16, acc[n][2 * r],
+               acc[n][2 * r + 1]);
     }
   }
 }
 
-// out = the sum of pass 2's key splits, in split order
+// out = the sum of pass 2's key splits, in split order (n even)
 __global__ void __launch_bounds__(256)
-sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
-                  long long n, int splits) {
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n;
-       i += (long long)gridDim.x * 256) {
-    float x = 0.f;
-    for (int s = 0; s < splits; ++s) x += part[s * n + i];
-    out[i] = x;
+sum_splits_kernel(const float* __restrict__ part, void* __restrict__ out,
+                  long long n, int splits, int out_bf16) {
+  for (long long i = 2 * (blockIdx.x * 256LL + threadIdx.x); i < n;
+       i += 2LL * gridDim.x * 256) {
+    float x = 0.f, y = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      x += part[s * n + i];
+      y += part[s * n + i + 1];
+    }
+    store2(out, i, out_bf16, x, y);
   }
 }
 
 
-template <typename Kernel>
+template <typename Kernel, typename E>
 int launch_k(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-             const Args& a) {
+             const Args<E>& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -664,38 +846,123 @@ int launch_k(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-template <int D, int DVT, int BK>
-int launch(const Args& a, int batch, int splits, cudaStream_t stream) {
+template <typename E, int D, int DVT, int BK>
+int launch(const Args<E>& a, int batch, int splits, cudaStream_t stream) {
   const dim3 grid(batch * a.heads, (a.lq + kBQ - 1) / kBQ, splits);
-  return launch_k(fwd_kernel<D, DVT, BK>, grid, Tiles<D, DVT, BK>::kSmem,
-                  stream, a);
+  return launch_k(fwd_kernel<E, D, DVT, BK>, grid,
+                  Tiles<E, D, DVT, BK>::kSmem, stream, a);
 }
 
 // the value tile, all of dv: 32 columns for AOT's heads, else 128 (one
 // width of each kind on the paths; a narrower head runs zero-padded)
-template <int D>
-int launch_d(const Args& a, int batch, int splits, cudaStream_t stream) {
-  if (a.dv <= 32) return launch<D, 32, (D == 32 ? 64 : 32)>(a, batch, splits, stream);
-  return launch<D, 128, 32>(a, batch, splits, stream);
+template <typename E, int D>
+int launch_d(const Args<E>& a, int batch, int splits, cudaStream_t stream) {
+  if (a.dv <= 32)
+    return launch<E, D, 32, (D == 32 ? 64 : 32)>(a, batch, splits, stream);
+  return launch<E, D, 128, 32>(a, batch, splits, stream);
 }
 
 
 // both passes over the `rows` query rows of the slab from a.row0
-template <int D>
-int launch_two_pass(const Args& a, int batch, int rows, int splits,
+template <typename E, int D>
+int launch_two_pass(const Args<E>& a, int batch, int rows, int splits,
                     cudaStream_t stream) {
   const int tiles = (rows + kBQ - 1) / kBQ;
   const dim3 s_grid(batch * a.heads, tiles, a.score_splits);
-  int err = launch_k(score_kernel<D>, s_grid, ScoreTiles<D>::kSmem, stream, a);
+  int err = launch_k(score_kernel<E, D>, s_grid, ScoreTiles<E, D>::kSmem,
+                     stream, a);
   if (err != 0) return err;
   const dim3 p_grid(batch * a.heads, tiles, a.dv_tiles * splits);
-  return launch_k(pv_kernel<128>, p_grid, PvTiles<128>::kSmem, stream, a);
+  return launch_k(pv_kernel<E, 128>, p_grid, PvTiles<E, 128>::kSmem, stream,
+                  a);
+}
+
+template <typename E>
+int fwd(const void* q, const void* k, const void* v, const void* valid,
+        void* out, void* lse, void* part, int splits, int score_splits,
+        int slab, int batch, int heads, int lq, int lk, int d, int dv,
+        int valid_all, long long q_sb, long long q_sl, long long k_sb,
+        long long k_sl, long long v_sb, long long v_sl, float scale,
+        void* stream) {
+  // elements of a 16-byte copy: widths and strides are multiples of it
+  constexpr int kVec = 16 / sizeof(E);
+  constexpr int kOutBf16 = kIsBf16<E> ? 1 : 0;
+  const bool two_pass = dv > 128;
+  if (batch < 1 || heads < 1 || lq < 1 || lk < 0 || d < 4 || d > kMaxD ||
+      d % 4 != 0 || dv < 4 || dv % 4 != 0 || d % kVec != 0 ||
+      dv % kVec != 0 || splits < 1 ||
+      (two_pass && (score_splits < 1 || slab < kBQ || slab % kBQ != 0 ||
+                    part == nullptr)) ||
+      (!two_pass && (splits > 1) != (part != nullptr)) ||
+      (q_sb | q_sl | k_sb | k_sl | v_sb | v_sl) % kVec != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long n_out = (long long)batch * lq * heads * dv;
+  const long long n_lse = (long long)batch * heads * lq;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (two_pass) {
+    const long long lds = (lk + kBKP - 1) / kBKP * kBKP;
+    float* scores = (float*)part;
+    float* part_out = scores + (long long)batch * heads * slab * lds;
+    float* stat_m = part_out + (splits > 1 ? splits * n_out : 0);
+    float* stat_l = stat_m + score_splits * n_lse;
+    const int score_tiles = (lk + kBKS - 1) / kBKS;
+    const int pv_tiles = (lk + kBKP - 1) / kBKP;
+    Args<E> a{(const E*)q, (const E*)k, (const E*)v,
+              (const int*)valid, splits > 1 ? (void*)part_out : out,
+              (float*)lse, splits > 1 ? n_out : 0, 0,
+              heads, lq, lk, d, dv, valid_all, (dv + 127) / 128,
+              (pv_tiles + splits - 1) / splits,
+              q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale,
+              0, slab, scores, lds, stat_m, stat_l, score_splits,
+              (score_tiles + score_splits - 1) / score_splits,
+              splits > 1 ? 0 : kOutBf16};
+    int err = 0;
+    for (int r0 = 0; r0 < lq && err == 0; r0 += slab) {
+      a.row0 = r0;
+      const int rows = lq - r0 < slab ? lq - r0 : slab;
+      err = d <= 32 ? launch_two_pass<E, 32>(a, batch, rows, splits, s)
+          : d <= 128 ? launch_two_pass<E, 128>(a, batch, rows, splits, s)
+                     : launch_two_pass<E, 256>(a, batch, rows, splits, s);
+    }
+    if (err != 0 || splits == 1) return err;
+    const long long blocks = (n_out + 511) / 512 < 2048 ? (n_out + 511) / 512 : 2048;
+    sum_splits_kernel<<<(int)blocks, 256, 0, s>>>(part_out, out, n_out,
+                                                  splits, kOutBf16);
+    return (int)cudaGetLastError();
+  }
+  const int bk = (d <= 32 && dv <= 32) ? 64 : 32;   // launch_d's
+  const int key_tiles = (lk + bk - 1) / bk;
+  float* part_out = (float*)part;
+  float* part_lse = part_out + (splits > 1 ? splits * n_out : 0);
+  Args<E> a{(const E*)q, (const E*)k, (const E*)v, (const int*)valid,
+            splits > 1 ? (void*)part_out : out,
+            splits > 1 ? part_lse : (float*)lse,
+            splits > 1 ? n_out : 0, splits > 1 ? n_lse : 0,
+            heads, lq, lk, d, dv, valid_all, 1,
+            (key_tiles + splits - 1) / splits,
+            q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale,
+            0, 0, nullptr, 0, nullptr, nullptr, 0, 0,
+            splits > 1 ? 0 : kOutBf16};
+  int err = d <= 32 ? launch_d<E, 32>(a, batch, splits, s)
+          : d <= 128 ? launch_d<E, 128>(a, batch, splits, s)
+                     : launch_d<E, 256>(a, batch, splits, s);
+  if (err != 0 || splits == 1) return err;
+  const long long n4 = n_out / 4;
+  const long long blocks = (n4 + 255) / 256 < 2048 ? (n4 + 255) / 256 : 2048;
+  merge_kernel<<<(int)blocks, 256, 0, s>>>(part_out, part_lse, out,
+                                           (float*)lse, splits, heads, lq, dv,
+                                           n4, n_out, n_lse, kOutBf16);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, bound from Python with ctypes. Strides are in floats;
-// every stride and pointer must be 16-byte aligned (the wrapper checks).
+// Plain C entry points, bound from Python with ctypes: flash_attn_fwd for
+// fp32 q, k, v and out, flash_attn_fwd_bf16 for bf16 ones (lse and every
+// scratch fp32 in both). Strides are in elements; every stride and pointer
+// must be 16-byte aligned (the wrapper checks), and for bf16 d and dv are
+// multiples of 8.
 // One pass (dv <= 128): `splits` > 1 splits the key loop over that many
 // blocks a query tile, for grids too small to fill the card; the blocks
 // write their partials into `part` (splits x B*Lq*h*dv floats of out, then
@@ -721,68 +988,22 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               long long q_sl, long long k_sb, long long k_sl,
                               long long v_sb, long long v_sl, float scale,
                               void* stream) {
-  const bool two_pass = dv > 128;
-  if (batch < 1 || heads < 1 || lq < 1 || lk < 0 || d < 4 || d > kMaxD ||
-      d % 4 != 0 || dv < 4 || dv % 4 != 0 || splits < 1 ||
-      (two_pass && (score_splits < 1 || slab < kBQ || slab % kBQ != 0 ||
-                    part == nullptr)) ||
-      (!two_pass && (splits > 1) != (part != nullptr)) ||
-      (q_sb | q_sl | k_sb | k_sl | v_sb | v_sl) % 4 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const long long n_out = (long long)batch * lq * heads * dv;
-  const long long n_lse = (long long)batch * heads * lq;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (two_pass) {
-    const long long lds = (lk + kBKP - 1) / kBKP * kBKP;
-    float* scores = (float*)part;
-    float* part_out = scores + (long long)batch * heads * slab * lds;
-    float* stat_m = part_out + (splits > 1 ? splits * n_out : 0);
-    float* stat_l = stat_m + score_splits * n_lse;
-    const int score_tiles = (lk + kBKS - 1) / kBKS;
-    const int pv_tiles = (lk + kBKP - 1) / kBKP;
-    Args a{(const float*)q, (const float*)k, (const float*)v,
-           (const int*)valid, splits > 1 ? part_out : (float*)out,
-           (float*)lse, splits > 1 ? n_out : 0, 0,
-           heads, lq, lk, d, dv, valid_all, (dv + 127) / 128,
-           (pv_tiles + splits - 1) / splits,
-           q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale,
-           0, slab, scores, lds, stat_m, stat_l, score_splits,
-           (score_tiles + score_splits - 1) / score_splits};
-    int err = 0;
-    for (int r0 = 0; r0 < lq && err == 0; r0 += slab) {
-      a.row0 = r0;
-      const int rows = lq - r0 < slab ? lq - r0 : slab;
-      err = d <= 32 ? launch_two_pass<32>(a, batch, rows, splits, s)
-          : d <= 128 ? launch_two_pass<128>(a, batch, rows, splits, s)
-                     : launch_two_pass<256>(a, batch, rows, splits, s);
-    }
-    if (err != 0 || splits == 1) return err;
-    const long long blocks = (n_out + 255) / 256 < 2048 ? (n_out + 255) / 256 : 2048;
-    sum_splits_kernel<<<(int)blocks, 256, 0, s>>>(part_out, (float*)out, n_out,
-                                                  splits);
-    return (int)cudaGetLastError();
-  }
-  const int bk = (d <= 32 && dv <= 32) ? 64 : 32;   // launch_d's
-  const int key_tiles = (lk + bk - 1) / bk;
-  float* part_out = (float*)part;
-  float* part_lse = part_out + (splits > 1 ? splits * n_out : 0);
-  Args a{(const float*)q, (const float*)k, (const float*)v, (const int*)valid,
-         splits > 1 ? part_out : (float*)out,
-         splits > 1 ? part_lse : (float*)lse,
-         splits > 1 ? n_out : 0, splits > 1 ? n_lse : 0,
-         heads, lq, lk, d, dv, valid_all, 1,
-         (key_tiles + splits - 1) / splits,
-         q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale,
-         0, 0, nullptr, 0, nullptr, nullptr, 0, 0};
-  int err = d <= 32 ? launch_d<32>(a, batch, splits, s)
-          : d <= 128 ? launch_d<128>(a, batch, splits, s)
-                     : launch_d<256>(a, batch, splits, s);
-  if (err != 0 || splits == 1) return err;
-  const long long n4 = n_out / 4;
-  const long long blocks = (n4 + 255) / 256 < 2048 ? (n4 + 255) / 256 : 2048;
-  merge_kernel<<<(int)blocks, 256, 0, s>>>(part_out, part_lse, (float*)out,
-                                           (float*)lse, splits, heads, lq, dv,
-                                           n4, n_out, n_lse);
-  return (int)cudaGetLastError();
+  return fwd<float>(q, k, v, valid, out, lse, part, splits, score_splits,
+                    slab, batch, heads, lq, lk, d, dv, valid_all, q_sb, q_sl,
+                    k_sb, k_sl, v_sb, v_sl, scale, stream);
+}
+
+extern "C" int flash_attn_fwd_bf16(const void* q, const void* k,
+                                   const void* v, const void* valid,
+                                   void* out, void* lse, void* part,
+                                   int splits, int score_splits, int slab,
+                                   int batch, int heads, int lq, int lk,
+                                   int d, int dv, int valid_all,
+                                   long long q_sb, long long q_sl,
+                                   long long k_sb, long long k_sl,
+                                   long long v_sb, long long v_sl,
+                                   float scale, void* stream) {
+  return fwd<bf16>(q, k, v, valid, out, lse, part, splits, score_splits,
+                   slab, batch, heads, lq, lk, d, dv, valid_all, q_sb, q_sl,
+                   k_sb, k_sl, v_sb, v_sl, scale, stream);
 }

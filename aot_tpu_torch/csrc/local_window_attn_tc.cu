@@ -81,7 +81,20 @@
 // value bytes at DeAOT's head); what limits it on the card is latency:
 // 8-16 warps an SM, each product a chain of dependent mma.sync steps and
 // each stage a barrier. wgmma over wider tiles is the next step.
+//
+// bf16 (entry local_window_attn_tc_fwd_bf16; bf16 serving). The same
+// kernel instantiated for bf16 q, k, v and out computes what `_kernel_flat`
+// and `_kernel_wide` compute for bf16 inputs (local_window_attn.py:
+// 420-469): q, k and v are widened to fp32 (exactly), rel_bias and rel_v
+// stay fp32, the masked softmax over the window and P V are fp32, and the
+// output is rounded to bf16 once. The q tile and the k and v halo rings
+// hold bf16 in shared memory (4 elements an 8-byte cp.async: half the
+// bytes staged and read through L2), widened where the fragments are
+// built. A bf16 value is exact in TF32, so products against a widened k or
+// v need no low part; q * scale and P still do, and the kernel keeps
+// 3xTF32 for all of them (the low parts of the widened operands are 0).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
@@ -89,6 +102,33 @@
 namespace {
 
 using namespace tf32x3;
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float ldf(float x) { return x; }
+__device__ __forceinline__ float ldf(bf16 x) { return __bfloat162float(x); }
+
+// copy 4 consecutive elements (16 bytes of fp32, 8 of bf16); zero if !ok
+__device__ __forceinline__ void cp_async_4el(float* dst, const float* src,
+                                             bool ok) {
+  cp_async16(dst, src, ok);
+}
+
+__device__ __forceinline__ void cp_async_4el(bf16* dst, const bf16* src,
+                                             bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+// two adjacent output columns
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
 
 constexpr int kTX = 16;        // queries a tile row: the mma tile's 16 rows
 constexpr int kHalo = 32;      // halo keys a row (16 + 2 * max_dis <= 30)
@@ -98,13 +138,14 @@ constexpr float kNegInf = -1e30f;
 
 enum Mode { kOnePass = 0, kScores = 1, kValues = 2 };
 
+template <typename T>
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
+  const T* q;
+  const T* k;
+  const T* v;
   const float* rel_bias;
   const float* rel_v;
-  float* out;
+  T* out;
   float* p;             // two passes: P, (B*h, HW, win2)
   int heads, height, width, d, dv, max_dis;
   int rows;             // query rows a tile
@@ -125,24 +166,29 @@ __host__ __device__ constexpr int chunk_rows() {
   return MODE == kScores ? 1 : MODE == kOnePass && DVT == 32 ? 4 : 2;
 }
 
-// Shared-memory layout in floats: the score block (rows*16 x ld_s), the q
-// tile (rows*16 x ld_qk; not in kValues) and one region that holds in turn
-// the k ring, the v ring (two stages of `chunk` halo rows each) and a
-// rel_v chunk.
+// Shared-memory layout: the score block (rows*16 x ld_s floats), the q
+// tile (rows*16 x ld_qk elements of T; not in kValues) and one region
+// that holds in turn the k ring, the v ring (two stages of `chunk` halo
+// rows each, in T) and an fp32 rel_v chunk. sc and q count their
+// elements, u its bytes.
 struct Layout {
   int sc, q, u;
-  __host__ __device__ Layout(int mode, int dvt, int chunk, const Args& a,
+  template <typename T>
+  __host__ __device__ Layout(int mode, int dvt, int chunk, const Args<T>& a,
                              bool with_rv) {
+    const int et = (int)sizeof(T);
     sc = a.rows * kTX * a.ld_s;
     q = mode != kValues ? a.rows * kTX * a.ld_qk : 0;
-    const int ring_k = mode != kValues ? 2 * chunk * kHalo * a.ld_qk : 0;
-    const int ring_v = mode != kScores ? 2 * chunk * kHalo * (dvt + 8) : 0;
-    const int rv = mode != kScores && with_rv ? 32 * a.ld_rv : 0;
+    const int ring_k = mode != kValues ? 2 * chunk * kHalo * a.ld_qk * et : 0;
+    const int ring_v =
+        mode != kScores ? 2 * chunk * kHalo * (dvt + 8) * et : 0;
+    const int rv = mode != kScores && with_rv ? 32 * a.ld_rv * 4 : 0;
     u = ring_k > ring_v ? ring_k : ring_v;
     u = u > rv ? u : rv;
   }
+  template <typename T>
   __host__ __device__ size_t bytes() const {
-    return sizeof(float) * (size_t)(sc + q + u);
+    return sizeof(float) * (size_t)sc + sizeof(T) * (size_t)q + (size_t)u;
   }
 };
 
@@ -150,8 +196,8 @@ struct Layout {
 // [0, cols) (cols a multiple of 4) into dst[key][c] with row stride ld.
 // `src` points at the row's column-0 key (channel offset included);
 // keys outside the image and channels at or beyond c_end are zero.
-__device__ __forceinline__ void stage_halo_row(float* dst, int ld,
-                                               const float* src,
+template <typename T>
+__device__ __forceinline__ void stage_halo_row(T* dst, int ld, const T* src,
                                                long long tstride, int kx0,
                                                int width, int cols, int c_end,
                                                int nthreads) {
@@ -161,8 +207,8 @@ __device__ __forceinline__ void stage_halo_row(float* dst, int ld,
     const int c = (i - j * c4) << 2;
     const int kx = kx0 + j;
     const bool ok = kx >= 0 && kx < width && c < c_end;
-    cp_async16(dst + j * ld + c, ok ? src + (long long)kx * tstride + c : src,
-               ok);
+    cp_async_4el(dst + j * ld + c,
+                 ok ? src + (long long)kx * tstride + c : src, ok);
   }
 }
 
@@ -203,8 +249,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // WN warps share a query row: warp part p owns the 8-column blocks
 // n = p, p + WN, ... of every product (keys, value columns) and the queries
 // x = p, p + WN, ... of the softmax.
-template <int MODE, int DVT, int WN>
-__global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
+template <typename T, int MODE, int DVT, int WN>
+__global__ void __launch_bounds__(256, 2) local_attn_kernel(Args<T> a) {
   constexpr int kR = chunk_rows<MODE, DVT>();
   constexpr int kNK = 4 / WN;           // key blocks of a warp
   constexpr int kNV = DVT / 8 / WN;     // value blocks of a warp
@@ -213,8 +259,8 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
   const Layout lay(MODE, DVT, kR, a, a.rel_v != nullptr);
   extern __shared__ float4 smem4[];
   float* sc = reinterpret_cast<float*>(smem4);
-  float* s_q = sc + lay.sc;
-  float* u = s_q + lay.q;
+  T* s_q = reinterpret_cast<T*>(sc + lay.sc);
+  T* u = s_q + lay.q;                   // the k and v rings, or rel_v
 
   const int warp = threadIdx.x >> 5;
   const int qrow = warp / WN;                   // the warp's query row
@@ -252,22 +298,23 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
     // 1. scores
     const long long qk_stride = (long long)a.heads * a.d;
     const int dpad = a.ld_qk - 4;
-    const float* k_img = a.k + (long long)b * hw * qk_stride +
-                         (long long)head * a.d;
+    const T* k_img = a.k + (long long)b * hw * qk_stride +
+                     (long long)head * a.d;
     {
       const int c4 = dpad >> 2;
-      const float* q_img = a.q + (long long)b * hw * qk_stride +
-                           (long long)head * a.d;
+      const T* q_img = a.q + (long long)b * hw * qk_stride +
+                       (long long)head * a.d;
       for (int i = threadIdx.x; i < rows * kTX * c4; i += nthreads) {
         const int qi = i / c4;
         const int c = (i - qi * c4) << 2;
         const int qy = y0 + qi / kTX;
         const int qx = x0 + (qi & (kTX - 1));
         const bool ok = qy < a.height && qx < a.width && c < a.d;
-        cp_async16(s_q + qi * a.ld_qk + c,
-                   ok ? q_img + (long long)(qy * a.width + qx) * qk_stride + c
-                      : q_img,
-                   ok);
+        cp_async_4el(s_q + qi * a.ld_qk + c,
+                     ok ? q_img + (long long)(qy * a.width + qx) * qk_stride +
+                              c
+                        : q_img,
+                     ok);
       }
     }
     const int k_rows = kHalo * a.ld_qk;         // floats of a staged row
@@ -286,7 +333,7 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
     };
     stage_k(0);
     const int ksteps = dpad >> 3;
-    const float* q_frag = s_q + (qrow * kTX + g) * a.ld_qk + t;
+    const T* q_frag = s_q + (qrow * kTX + g) * a.ld_qk + t;
     for (int c = 0; c < n_chunks; ++c) {
       stage_k(c + 1);
       cp_async_wait<1>();
@@ -306,13 +353,13 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
         for (int i = 0; i < kNK; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[rr][i][e] = s_small[rr][i][e] = 0.f;
-      const float* kt = u + (c & 1) * kR * k_rows;
+      const T* kt = u + (c & 1) * kR * k_rows;
       // S_dy = Q K_halo^T: A(query, channel), B(channel, key)
 #pragma unroll 2
       for (int ks = 0; ks < ksteps; ++ks) {
-        const float* qa = q_frag + ks * 8;
-        const FragA fa = frag_a(qa[0], qa[8 * a.ld_qk], qa[4],
-                                qa[8 * a.ld_qk + 4]);
+        const T* qa = q_frag + ks * 8;
+        const FragA fa = frag_a(ldf(qa[0]), ldf(qa[8 * a.ld_qk]), ldf(qa[4]),
+                                ldf(qa[8 * a.ld_qk + 4]));
 #pragma unroll
         for (int rr = 0; rr < kR; ++rr) {
           if (ok[rr]) {
@@ -320,9 +367,10 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
             for (int i = 0; i < kNK; ++i) {
               const int n = part + i * WN;
               if (n < nb) {
-                const float* kb =
+                const T* kb =
                     kt + rr * k_rows + (n * 8 + g) * a.ld_qk + ks * 8 + t;
-                mma3_apart(s[rr][i], s_small[rr][i], fa, frag_b(kb[0], kb[4]));
+                mma3_apart(s[rr][i], s_small[rr][i], fa,
+                           frag_b(ldf(kb[0]), ldf(kb[4])));
               }
             }
           }
@@ -351,8 +399,8 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
   // the value pass's first copies go out before the softmax runs
   const long long v_stride = (long long)a.heads * a.dv;
   const int vt0 = blockIdx.z * DVT;             // this block's value tile
-  const float* v_img = a.v + (long long)b * hw * v_stride +
-                       (long long)head * a.dv + vt0;
+  const T* v_img = a.v + (long long)b * hw * v_stride +
+                   (long long)head * a.dv + vt0;
   constexpr int kLdV = DVT + 8;                 // = 8 mod 32: B reads
   constexpr int kVRow = kHalo * kLdV;           // floats of a staged row
   auto stage_v = [&](int c) {
@@ -457,14 +505,14 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
         for (int i = 0; i < kNV; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) pv[j][i][e] = 0.f;
-      const float* vt = u + (c & 1) * kR * kVRow;
+      const T* vt = u + (c & 1) * kR * kVRow;
 #pragma unroll
       for (int rr = 0; rr < kR; ++rr) {
         const int dy = dy0 + rr;
         if (!(row_ok && dy >= 0 && dy < win && r_lo + c * kR + rr < r_hi))
           continue;                               // warp-uniform
         const int s0 = dy * win;
-        const float* vr = vt + rr * kVRow;
+        const T* vr = vt + rr * kVRow;
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks) {
           if (ks < nb) {
@@ -477,12 +525,12 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
                 (unsigned)d1 < (unsigned)win ? p1[s0 + d1] : 0.f,
                 (unsigned)d2 < (unsigned)win ? p0[s0 + d2] : 0.f,
                 (unsigned)d3 < (unsigned)win ? p1[s0 + d3] : 0.f);
-            const float* vb = vr + (ks * 8 + t) * kLdV + g;
+            const T* vb = vr + (ks * 8 + t) * kLdV + g;
 #pragma unroll
             for (int i = 0; i < kNV; ++i) {
               const int n = part + i * WN;
               mma3(pv[rr % kPV][i], fa,
-                   frag_b(vb[n * 8], vb[4 * kLdV + n * 8]));
+                   frag_b(ldf(vb[n * 8]), ldf(vb[4 * kLdV + n * 8])));
             }
           }
         }
@@ -508,12 +556,13 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
         if (c_base >= a.dv) break;
         __syncthreads();                        // the region is free
         const float* src = a.rel_v + ((long long)head * a.dv + c_base) * win2;
+        float* u_rv = reinterpret_cast<float*>(u);   // fp32 rel_v chunk
         const int n_cols = min(32, a.dv - c_base);
         for (int i = threadIdx.x; i < 32 * a.ld_rv; i += nthreads) {
           const int c = i / a.ld_rv;
           const int j = i - c * a.ld_rv;
           const bool ok = c < n_cols && j < win2;
-          cp_async4(u + i, ok ? src + (long long)c * win2 + j : src, ok);
+          cp_async4(u_rv + i, ok ? src + (long long)c * win2 + j : src, ok);
         }
         cp_async_commit();
         cp_async_wait<0>();
@@ -540,7 +589,8 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
 #pragma unroll
               for (int i = 0; i < kNC; ++i) {
                 // the chunk's block part + i * WN of this warp
-                const float* rb = u + ((part + i * WN) * 8 + g) * a.ld_rv + j;
+                const float* rb =
+                    u_rv + ((part + i * WN) * 8 + g) * a.ld_rv + j;
                 mma3(part_acc[kk & 1][i], fa, frag_b(rb[0], rb[4]));
               }
             }
@@ -564,27 +614,25 @@ __global__ void __launch_bounds__(256, 2) local_attn_kernel(Args a) {
     for (int h2 = 0; h2 < 2; ++h2) {
       const int gx = x0 + g + 8 * h2;
       if (gx >= a.width) continue;
-      float* o_row = a.out + ((long long)b * hw + (long long)y * a.width + gx) *
-                                 v_stride +
-                     (long long)head * a.dv;
+      T* o_row = a.out + ((long long)b * hw + (long long)y * a.width + gx) *
+                             v_stride +
+                 (long long)head * a.dv;
 #pragma unroll
       for (int i = 0; i < kNV; ++i) {
         const int col = vt0 + (part + i * WN) * 8 + 2 * t;  // dv % 4 == 0
-        if (col < a.dv)
-          *reinterpret_cast<float2*>(o_row + col) =
-              make_float2(acc[i][2 * h2], acc[i][2 * h2 + 1]);
+        if (col < a.dv) store2(o_row + col, acc[i][2 * h2], acc[i][2 * h2 + 1]);
       }
     }
   }
 }
 
-template <int MODE, int DVT, int WN>
-int launch(const Args& a, int batch_heads, int value_tiles,
+template <typename T, int MODE, int DVT, int WN>
+int launch(const Args<T>& a, int batch_heads, int value_tiles,
            cudaStream_t stream) {
   const size_t smem = Layout(MODE, DVT, chunk_rows<MODE, DVT>(), a,
-                             a.rel_v != nullptr).bytes();
+                             a.rel_v != nullptr).template bytes<T>();
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = local_attn_kernel<MODE, DVT, WN>;
+  auto kernel = local_attn_kernel<T, MODE, DVT, WN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -597,31 +645,23 @@ int launch(const Args& a, int batch_heads, int value_tiles,
 // One pass at a.rows query rows a tile: 2 warps a row in a 4-row tile, else
 // 4. 4-row tiles are built only where a block's values are 32 columns wide
 // (the one pass at dv <= 32, and the scores, which hold no values).
-template <int MODE, int DVT>
-int launch_pass(const Args& a, int batch_heads, int value_tiles,
+template <typename T, int MODE, int DVT>
+int launch_pass(const Args<T>& a, int batch_heads, int value_tiles,
                 cudaStream_t s) {
   if (a.rows == 4) {
     if constexpr (DVT == 32)
-      return launch<MODE, DVT, 2>(a, batch_heads, value_tiles, s);
+      return launch<T, MODE, DVT, 2>(a, batch_heads, value_tiles, s);
     return (int)cudaErrorInvalidValue;
   }
   if (a.rows != 1 && a.rows != 2) return (int)cudaErrorInvalidValue;
-  return launch<MODE, DVT, 4>(a, batch_heads, value_tiles, s);
+  return launch<T, MODE, DVT, 4>(a, batch_heads, value_tiles, s);
 }
 
-}  // namespace
-
-// Plain C entry point, bound from Python with ctypes. plan[0] is the query
-// rows a tile (1, 2 or 4) of the first pass (the only one for d, dv <= 128,
-// else the scores), plan[1] that of the value pass (two passes), and `p`
-// the value pass's (B*h, HW, win2) fp32 scratch; the wrapper's launch plan
-// chooses them. Launches on `stream` and returns cudaGetLastError() (0 on
-// success); allocates nothing.
-extern "C" int local_window_attn_tc_fwd(
-    const void* q, const void* k, const void* v, const void* rel_bias,
-    const void* rel_v, void* out, void* p, int batch, int heads, int height,
-    int width, int d, int dv, int max_dis, const int* plan, float scale,
-    void* stream) {
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, const void* rel_bias,
+        const void* rel_v, void* out, void* p, int batch, int heads,
+        int height, int width, int d, int dv, int max_dis, const int* plan,
+        float scale, void* stream) {
   const bool two = d > 128 || dv > 128;
   if (batch < 1 || heads < 1 || height < 1 || width < 1 || d < 4 ||
       d % 4 != 0 || dv < 4 || dv % 4 != 0 || max_dis < 0 ||
@@ -629,13 +669,13 @@ extern "C" int local_window_attn_tc_fwd(
       (two && p == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a;
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
+  Args<T> a;
+  a.q = (const T*)q;
+  a.k = (const T*)k;
+  a.v = (const T*)v;
   a.rel_bias = (const float*)rel_bias;
   a.rel_v = (const float*)rel_v;
-  a.out = (float*)out;
+  a.out = (T*)out;
   a.p = (float*)p;
   a.heads = heads;
   a.height = height;
@@ -654,11 +694,39 @@ extern "C" int local_window_attn_tc_fwd(
   cudaStream_t s = (cudaStream_t)stream;
   a.rows = plan[0];
   if (!two) {
-    return dv <= 32 ? launch_pass<kOnePass, 32>(a, bh, 1, s)
-                    : launch_pass<kOnePass, 128>(a, bh, 1, s);
+    return dv <= 32 ? launch_pass<T, kOnePass, 32>(a, bh, 1, s)
+                    : launch_pass<T, kOnePass, 128>(a, bh, 1, s);
   }
-  const int err = launch_pass<kScores, 32>(a, bh, 1, s);
+  const int err = launch_pass<T, kScores, 32>(a, bh, 1, s);
   if (err != 0) return err;
   a.rows = plan[1];
-  return launch_pass<kValues, 128>(a, bh, (dv + 127) / 128, s);
+  return launch_pass<T, kValues, 128>(a, bh, (dv + 127) / 128, s);
+}
+
+}  // namespace
+
+// Plain C entry points, bound from Python with ctypes: local_window_attn_tc_fwd
+// for fp32 q, k, v and out, local_window_attn_tc_fwd_bf16 for bf16 ones
+// (rel_bias, rel_v and the scratch fp32 in both). plan[0] is the query rows
+// a tile (1, 2 or 4) of the first pass (the only one for d, dv <= 128,
+// else the scores), plan[1] that of the value pass (two passes), and `p`
+// the value pass's (B*h, HW, win2) fp32 scratch; the wrapper's launch plan
+// chooses them. Launches on `stream` and returns cudaGetLastError() (0 on
+// success); allocates nothing.
+extern "C" int local_window_attn_tc_fwd(
+    const void* q, const void* k, const void* v, const void* rel_bias,
+    const void* rel_v, void* out, void* p, int batch, int heads, int height,
+    int width, int d, int dv, int max_dis, const int* plan, float scale,
+    void* stream) {
+  return fwd<float>(q, k, v, rel_bias, rel_v, out, p, batch, heads, height,
+                    width, d, dv, max_dis, plan, scale, stream);
+}
+
+extern "C" int local_window_attn_tc_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* rel_bias,
+    const void* rel_v, void* out, void* p, int batch, int heads, int height,
+    int width, int d, int dv, int max_dis, const int* plan, float scale,
+    void* stream) {
+  return fwd<bf16>(q, k, v, rel_bias, rel_v, out, p, batch, heads, height,
+                   width, d, dv, max_dis, plan, scale, stream);
 }

@@ -16,7 +16,8 @@ import torch
 
 from aot_tpu_torch.engine import state as S
 from aot_tpu_torch.engine.engine import VOSEngine
-from aot_tpu_torch.ops.image import interpolate_bilinear, upsample_argmax
+from aot_tpu_torch.ops.image import (interpolate_bilinear, nearest_labels,
+                                     upsample_argmax)
 
 
 def groups_for(obj_num: int, max_obj_num: int) -> int:
@@ -139,8 +140,10 @@ class LTShadow:
 
 
 class VOSInferEngine:
-    """Online inference engine for one video (any number of objects).
-    Images are (1, H, W, 3) float or uint8, masks (1, H, W) int."""
+    """Online inference engine for one video (any number of objects), or
+    for N videos of at most max_obj_num objects each, one a batch row
+    (`add_reference_frames_videos`, `step_videos`). Images are (B, H, W, 3)
+    float or uint8, masks (B, H, W) int."""
 
     def __init__(self, engine: VOSEngine, aggregation: str = "soft"):
         self.engine = engine
@@ -227,3 +230,68 @@ class VOSInferEngine:
                                align_corners=self.engine.align_corners)
         state = self.update_memory(state, pred)
         return state, pred, logits
+
+    # --- batched multi-video serving ------------------------------------
+    # N independent videos advanced by one step: the engine's batch axis
+    # carries videos instead of object groups (each video <= max_obj_num
+    # objects: one group). decode_logits masks each row's unused ids from
+    # state.obj_nums, the LT counts are per row, and every memory and
+    # attention op treats rows independently, so nothing is aggregated
+    # (aot_tpu/engine/infer.py:272-320).
+
+    @torch.inference_mode()
+    def add_reference_frames_videos(self, imgs: torch.Tensor,
+                                    masks: torch.Tensor,
+                                    obj_nums: Sequence[int]
+                                    ) -> S.EngineState:
+        """imgs (N, H, W, 3), masks (N, H, W) with ids 1..obj_nums[i] (each
+        at most max_obj_num): one state whose row i is video i."""
+        if max(obj_nums) > self.max_obj_num:
+            raise ValueError(
+                f"add_reference_frames_videos: obj_nums {list(obj_nums)} "
+                f"exceed max_obj_num={self.max_obj_num} (one group a video)")
+        return self.engine.add_reference_frame(imgs, masks, list(obj_nums))
+
+    @torch.inference_mode()
+    def step_videos(self, state: S.EngineState, imgs: torch.Tensor,
+                    orig_size: Tuple[int, int],
+                    input_size: Optional[Tuple[int, int]] = None):
+        """One step of N videos: propagate -> decode at the original size
+        -> argmax -> (nearest-down to the input size) -> update_memory, per
+        row exactly the evaluator's scalar cadence. imgs (N, h, w, 3) at
+        the input size. A ragged batch replays a finished video's last
+        frame and drops its output (rows never interact). Returns (state,
+        preds (N, H, W) int64 at orig_size, grid-resolution logits (N, h4,
+        w4, M+1), as `step` returns its own)."""
+        eng = self.engine
+        state = eng.propagate(state, imgs)
+        logits = eng.decode_logits(state)
+        pred = upsample_argmax(logits, orig_size,
+                               align_corners=eng.align_corners)
+        lab = pred
+        if input_size is not None and tuple(input_size) != tuple(orig_size):
+            lab = nearest_labels(pred, input_size)
+        return eng.update_memory(state, mask=lab), pred, logits
+
+    @torch.inference_mode()
+    def step_chunk(self, state: S.EngineState, imgs: torch.Tensor,
+                   orig_size: Tuple[int, int], input_size: Tuple[int, int]):
+        """K frames of one video with the masks fed back on the device: the
+        eager form of aot_tpu/engine/infer.py:322-364's `lax.scan`. Per
+        frame the ops of the evaluator's scalar path (propagate ->
+        aggregated logits -> bilinear to orig_size -> argmax -> nearest to
+        input_size -> update_memory); nothing in the loop waits for the
+        device, so the caller reads the K masks back once. The caller grows
+        a 'grow' ring beforehand for every LT write of the chunk (the
+        schedule is known on the host: a copy of `LTShadow`).
+
+        imgs: (K, 1, h, w, 3). Returns (state, preds (K, 1, H, W) uint8)."""
+        preds = []
+        for img in imgs:
+            state = self.propagate(state, img)
+            pred = upsample_argmax(self.decode_logits(state), orig_size,
+                                   align_corners=self.engine.align_corners)
+            state = self.update_memory(state, nearest_labels(pred,
+                                                             input_size))
+            preds.append(pred.to(torch.uint8))
+        return state, torch.stack(preds)

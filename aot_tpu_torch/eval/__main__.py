@@ -11,8 +11,9 @@ when there is no card. `--ckpt_path test` evaluates seeded random weights;
 a `.pth` path (or the newest `save_step_N.pth` of the experiment's
 checkpoint directory, `--ema` for the EMA stream) loads a checkpoint of the
 port's trainer or a reference-keyed state dict of the reference PyTorch
-repository. `--amp`, `--frame_chunk` > 1 and `--video_batch` > 1 raise
-NotImplementedError (Evaluator.check_supported).
+repository. `--amp` serves in bf16 (TEST_DTYPE=bfloat16), `--video_batch N`
+advances N videos a step and `--frame_chunk K` steps label-free runs K
+frames at a time (eval/evaluator.py).
 """
 
 from __future__ import annotations
@@ -39,16 +40,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ms", nargs="+", type=float, default=[1.0])
     parser.add_argument("--max_resolution", type=float, default=480 * 1.3)
     parser.add_argument("--amp", action="store_true", default=False,
-                        help="bf16 inference (TEST_DTYPE=bfloat16; not "
-                             "ported, raises)")
+                        help="bf16 inference (TEST_DTYPE=bfloat16)")
     parser.add_argument("--lstt_num", type=int, default=-1,
                         help="override MODEL_LSTT_NUM")
     parser.add_argument("--max_id_num", type=int, default=-1,
                         help="override MODEL_MAX_OBJ_NUM")
     parser.add_argument("--frame_chunk", type=int, default=-1,
-                        help="TEST_FRAME_CHUNK (> 1 not ported, raises)")
+                        help="TEST_FRAME_CHUNK: label-free frames a step")
     parser.add_argument("--video_batch", type=int, default=-1,
-                        help="TEST_VIDEO_BATCH (> 1 not ported, raises)")
+                        help="TEST_VIDEO_BATCH: videos a step")
     parser.add_argument("--lt_gap", type=int, default=-1)
     parser.add_argument("--st_skip", type=int, default=-1)
     parser.add_argument("--mem_cap", type=int, default=-1)
@@ -164,13 +164,12 @@ def run(argv=None, cudnn_benchmark: bool = True):
     False (Evaluator)."""
     args = build_parser().parse_args(argv)
     from aot_tpu_torch.configs import build_config
-    from aot_tpu_torch.eval.evaluator import Evaluator, check_supported
+    from aot_tpu_torch.eval.evaluator import Evaluator
     from aot_tpu_torch.utils.device import resolve_device
 
     cfg = build_config(stage=args.stage, model=args.model,
                        exp_name=args.exp_name, make_dirs=True,
                        **build_overrides(args))
-    check_supported(cfg)
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

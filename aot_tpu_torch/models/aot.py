@@ -12,6 +12,12 @@ The engine drives the model through these methods:
 The patch-wise identity bank is the reference's stride-16 conv over the
 one-hot mask; the JAX package's label-matmul form of it is a TPU
 lane-padding workaround and is not carried over.
+
+Compute dtype (`compute_dtype`, TEST_DTYPE: float32 or bfloat16 for
+serving): the parameters stay fp32 and the layers compute in their input's
+dtype (models/layers.py), so the model casts what enters it, where
+aot_tpu/models/aot.py:211,217,284 does: the image, the one-hot mask and the
+position embedding. The decoder returns fp32 logits.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from torch import nn
 
 from aot_tpu_torch.models.decoders import FPNSegmentationHead
 from aot_tpu_torch.models.encoders import build_encoder
-from aot_tpu_torch.models.layers import dropout, seq_from_2d, seq_to_2d
+from aot_tpu_torch.models.layers import (Conv2d, LayerNorm, dropout,
+                                        seq_from_2d, seq_to_2d)
 from aot_tpu_torch.models.lstt import DualBranchGPM, LongShortTermTransformer
 from aot_tpu_torch.ops.position import sine_position_embedding_seq
 from aot_tpu_torch.utils.device import resolve_device
@@ -40,16 +47,17 @@ class AOT(nn.Module):
                  lstt_num: int = 1, self_heads: int = 8, att_heads: int = 8,
                  decoder_intermediate: bool = True,
                  align_corners: bool = True, id_dropout: float = 0.0,
-                 **lstt_drop):
+                 compute_dtype: torch.dtype = torch.float32, **lstt_drop):
         """lstt_drop: the LSTT stack's dropout and stochastic-depth rates
         (emb_dropout, droppath, lt_dropout, st_dropout, droppath_lst,
         droppath_scaling); they act only on a forward given a generator."""
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.emb_dim = emb_dim
         self.max_obj_num = max_obj_num
         self.id_dropout = id_dropout
         self.encoder = build_encoder(encoder_name)
-        self.encoder_projector = nn.Conv2d(encoder_dims[-1], emb_dim, 1)
+        self.encoder_projector = Conv2d(encoder_dims[-1], emb_dim, 1)
         self.LSTT = self._make_lstt(lstt_num, emb_dim, self_heads, att_heads,
                                     decoder_intermediate, **lstt_drop)
         self.decoder = FPNSegmentationHead(
@@ -60,7 +68,7 @@ class AOT(nn.Module):
             align_corners=align_corners)
         # kernel 17 / pad 8 when align_corners (aot.py:50-63)
         ks = 17 if align_corners else 16
-        self.patch_wise_id_bank = nn.Conv2d(
+        self.patch_wise_id_bank = Conv2d(
             max_obj_num + 1, emb_dim, ks, stride=16,
             padding=8 if align_corners else 0)
 
@@ -81,7 +89,7 @@ class AOT(nn.Module):
     def encode_image(self, img: torch.Tensor):
         """img: (B, 3, H, W) normalised. Returns 4 feature maps, the last
         projected to emb_dim (aot.py:81-84)."""
-        xs = self.encoder(img)
+        xs = self.encoder(img.to(self.compute_dtype))
         xs[-1] = self.encoder_projector(xs[-1])
         return xs
 
@@ -89,7 +97,8 @@ class AOT(nn.Module):
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
         """one_hot: (B, M+1, H, W) -> (B, HW16, emb_dim) (aot.py:76-79)."""
-        x = self._id_post(seq_from_2d(self.patch_wise_id_bank(one_hot)))
+        x = self._id_post(seq_from_2d(self.patch_wise_id_bank(
+            one_hot.to(self.compute_dtype))))
         return dropout(x, self.id_dropout, generator)
 
     def get_id_emb_label(self, label: torch.Tensor,
@@ -100,8 +109,9 @@ class AOT(nn.Module):
         return self.get_id_emb(one_hot.permute(0, 3, 1, 2).float(), generator)
 
     def get_pos_emb(self, size_2d: Tuple[int, int], device) -> torch.Tensor:
-        return sine_position_embedding_seq(size_2d[0], size_2d[1],
-                                           self.emb_dim, device=device)
+        return sine_position_embedding_seq(
+            size_2d[0], size_2d[1], self.emb_dim,
+            device=device).to(self.compute_dtype)
 
     def lstt_forward(self, emb16: torch.Tensor, lt_mems, st_mems,
                      curr_id_emb, pos_emb, size_2d: Tuple[int, int], *,
@@ -116,7 +126,8 @@ class AOT(nn.Module):
             max_mem_len_ratio=max_mem_len_ratio, generator=generator)
 
     def decode_id_logits(self, lstt_intermediates, shortcuts) -> torch.Tensor:
-        """(aot.py:86-92). Returns (B, M+1, H4, W4) fp32 logits."""
+        """(aot.py:86-92). Returns (B, M+1, H4, W4) fp32 logits, whatever
+        the compute dtype (aot_tpu/models/decoders.py:59)."""
         size_2d = shortcuts[-1].shape[-2:]
         inputs = [shortcuts[-1]]
         inputs += [seq_to_2d(emb, size_2d) for emb in lstt_intermediates]
@@ -134,7 +145,7 @@ class DeAOT(AOT):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self.id_norm = nn.LayerNorm(self.emb_dim)
+        self.id_norm = LayerNorm(self.emb_dim)
 
     def _make_lstt(self, lstt_num, emb_dim, self_heads, att_heads,
                    decoder_intermediate, **lstt_drop) -> nn.Module:
@@ -262,11 +273,12 @@ def build_vos_model(cfg, device=None,
                     train: bool = False) -> AOT:
     """Construct the model from a Config (aot.py:328-353): AOT or DeAOT
     (`MODEL_VOS`) with any encoder of `MODEL_ENCODER` (MobileNetV2/V3,
-    ResNet-50/101, ResNeSt-50/101/200/269, Swin-B), fp32, weights drawn from
+    ResNet-50/101, ResNeSt-50/101/200/269, Swin-B), fp32 weights drawn from
     `generator` (seed 0 when None), on `device`: cuda:0 by default, which
     raises when there is no card (pass device='cpu' for the CPU).
 
-    train=False: the serving model, in eval mode with gradients off.
+    train=False: the serving model, in eval mode with gradients off,
+    computing in TEST_DTYPE (float32 or bfloat16).
     train=True: the trainable AOT model (TRAIN_DTYPE float32, frozen BN),
     in train mode with gradients on; the FrozenBN statistics and affine stay
     buffers, as the JAX package stop_gradients them. Its dropout and
@@ -277,12 +289,16 @@ def build_vos_model(cfg, device=None,
         raise NotImplementedError(
             f"MODEL_VOS={cfg.MODEL_VOS!r}: aot_tpu_torch serves "
             f"{sorted(classes)}")
+    dtypes = {"float32": torch.float32}
+    if not train:
+        dtypes["bfloat16"] = torch.bfloat16
     dtype_key = "TRAIN_DTYPE" if train else "TEST_DTYPE"
-    if str(cfg.get(dtype_key)) != "float32":
+    if str(cfg.get(dtype_key)) not in dtypes:
         raise NotImplementedError(
-            f"{dtype_key}={cfg.get(dtype_key)!r}: aot_tpu_torch runs float32 "
-            "only (ROADMAP.md, Queue 1: bf16); pass --fp32 or "
-            f"{dtype_key}='float32'")
+            f"{dtype_key}={cfg.get(dtype_key)!r}: aot_tpu_torch "
+            f"{'trains' if train else 'serves'} in {sorted(dtypes)} (bf16 "
+            "training waits for a bf16 flash backward, ROADMAP.md Queue 1, "
+            f"bf16 training); pass --fp32 or {dtype_key}='float32'")
     if train and cfg.MODEL_VOS != "aot":
         raise NotImplementedError(
             "aot_tpu_torch trains AOT models only; DeAOT training is "
@@ -309,7 +325,8 @@ def build_vos_model(cfg, device=None,
         self_heads=cfg.MODEL_SELF_HEADS,
         att_heads=cfg.MODEL_ATT_HEADS,
         decoder_intermediate=cfg.MODEL_DECODER_INTERMEDIATE_LSTT,
-        align_corners=cfg.MODEL_ALIGN_CORNERS, **drop)
+        align_corners=cfg.MODEL_ALIGN_CORNERS,
+        compute_dtype=dtypes[str(cfg.get(dtype_key))], **drop)
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
     model = model.to(device)

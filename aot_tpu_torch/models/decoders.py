@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aot_tpu_torch.models.layers import ConvGN
+from aot_tpu_torch.models.layers import Conv2d, ConvGN
 
 
 class FPNSegmentationHead(nn.Module):
@@ -26,10 +26,10 @@ class FPNSegmentationHead(nn.Module):
         self.conv_16x = ConvGN(hd, hd, 3)
         self.conv_8x = ConvGN(hd, hd // 2, 3)
         self.conv_4x = ConvGN(hd // 2, hd // 2, 3)
-        self.adapter_16x = nn.Conv2d(shortcut_dims[-2], hd, 1)
-        self.adapter_8x = nn.Conv2d(shortcut_dims[-3], hd, 1)
-        self.adapter_4x = nn.Conv2d(shortcut_dims[-4], hd // 2, 1)
-        self.conv_out = nn.Conv2d(hd // 2, out_dim, 1)
+        self.adapter_16x = Conv2d(shortcut_dims[-2], hd, 1)
+        self.adapter_8x = Conv2d(shortcut_dims[-3], hd, 1)
+        self.adapter_4x = Conv2d(shortcut_dims[-4], hd // 2, 1)
+        self.conv_out = Conv2d(hd // 2, out_dim, 1)
 
     def _up(self, x, like):
         return F.interpolate(x, size=like.shape[-2:], mode="bilinear",

@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from aot_tpu_torch.models.layers import Conv2d
+
 
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm with fixed statistics and affine parameters, frozen mode
@@ -22,17 +24,20 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.full((features,), 1 - eps))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Scale and shift from the fp32 buffers, cast to x's dtype
+        (aot_tpu/models/encoders/common.py:52-58)."""
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
-        return x * scale[:, None, None] + shift[:, None, None]
+        return (x * scale.to(x.dtype)[:, None, None]
+                + shift.to(x.dtype)[:, None, None])
 
 
 def conv_kaiming(in_dim: int, out_dim: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
-                 bias: bool = False) -> nn.Conv2d:
+                 bias: bool = False) -> Conv2d:
     """Encoder conv with 'same' padding (k-1)//2*dilation; its kaiming
     (fan_out) init is applied by the model's init_weights."""
-    return nn.Conv2d(in_dim, out_dim, kernel_size, stride=stride,
+    return Conv2d(in_dim, out_dim, kernel_size, stride=stride,
                      padding=(kernel_size - 1) // 2 * dilation,
                      dilation=dilation, groups=groups, bias=bias)
 

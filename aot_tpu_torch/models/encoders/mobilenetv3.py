@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aot_tpu_torch.models.encoders.common import FrozenBatchNorm2d, conv_kaiming
+from aot_tpu_torch.models.layers import Linear
 
 # (k, t, c, SE, HS, s) walked at output stride 16
 # (reference: mobilenetv3.py:155-172,178-193)
@@ -87,8 +88,8 @@ class SELayer(nn.Module):
     def __init__(self, channel: int):
         super().__init__()
         inter = _make_divisible(channel // 4)
-        self.fc = nn.Sequential(nn.Linear(channel, inter), nn.ReLU(),
-                                nn.Linear(inter, channel), HSigmoid())
+        self.fc = nn.Sequential(Linear(channel, inter), nn.ReLU(),
+                                Linear(inter, channel), HSigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.fc(x.mean((2, 3)))[:, :, None, None]

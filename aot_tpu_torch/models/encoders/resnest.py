@@ -15,6 +15,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
+from aot_tpu_torch.models.layers import Conv2d
 from aot_tpu_torch.models.encoders.common import (FrozenBatchNorm2d,
                                                   avd_pool, avg_down_pool,
                                                   conv_kaiming, stem_max_pool)
@@ -42,9 +43,9 @@ class SplAtConv2d(nn.Module):
                                  dilation, groups=radix)
         self.bn0 = FrozenBatchNorm2d(channels * radix)
         self.relu = nn.ReLU()
-        self.fc1 = nn.Conv2d(channels, inter, 1)
+        self.fc1 = Conv2d(channels, inter, 1)
         self.bn1 = FrozenBatchNorm2d(inter)
-        self.fc2 = nn.Conv2d(inter, channels * radix, 1)
+        self.fc2 = Conv2d(inter, channels * radix, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.relu(self.bn0(self.conv(x)))
@@ -52,7 +53,9 @@ class SplAtConv2d(nn.Module):
         split = y.view(b, self.radix, -1, h, w)
         gap = split.sum(1).mean((2, 3), keepdim=True)        # (B, C, 1, 1)
         gap = self.relu(self.bn1(self.fc1(gap)))
-        atten = self.fc2(gap).view(b, self.radix, -1).softmax(1)
+        # the radix softmax in fp32 (aot_tpu resnest.py:49-51)
+        atten = self.fc2(gap).view(b, self.radix, -1).float().softmax(1)
+        atten = atten.to(y.dtype)
         return (split * atten[..., None, None]).sum(1)
 
 

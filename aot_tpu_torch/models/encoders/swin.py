@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aot_tpu_torch.models.layers import DropPath
+from aot_tpu_torch.models.layers import Conv2d, DropPath, LayerNorm, Linear
 
 
 def relative_position_index(window: int) -> np.ndarray:
@@ -83,8 +83,8 @@ class WindowAttention(nn.Module):
             "relative_position_index",
             torch.from_numpy(relative_position_index(window).reshape(-1)),
             persistent=False)
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]
                 ) -> torch.Tensor:
@@ -93,23 +93,27 @@ class WindowAttention(nn.Module):
         h = self.num_heads
         qkv = self.qkv(x).view(b_, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * self.scale, qkv[1], qkv[2]
-        attn = q @ k.transpose(-2, -1)
+        # scores, bias, mask and softmax in fp32; P in v's dtype, P V
+        # summed in fp32 (aot_tpu swin.py:90-101)
+        attn = q.float() @ k.float().transpose(-2, -1)
         bias = self.relative_position_bias_table[self.relative_position_index]
         attn = attn + bias.view(n, n, h).permute(2, 0, 1)[None]
         if mask is not None:
             nw = mask.shape[0]
             attn = (attn.view(b_ // nw, nw, h, n, n)
                     + mask[None, :, None]).view(b_, h, n, n)
-        out = attn.softmax(-1) @ v
+        out = (attn.softmax(-1).to(v.dtype).float() @ v.float()).to(v.dtype)
         return self.proj(out.transpose(1, 2).reshape(b_, n, c))
 
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.act = nn.GELU()        # exact (erf) GELU
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        # exact (erf) GELU; torch computes a bf16 input in fp32 and rounds
+        # once, as aot_tpu swin.py:214 does
+        self.act = nn.GELU()
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
@@ -124,10 +128,10 @@ class SwinBlock(nn.Module):
                  drop_path: float = 0.0):
         super().__init__()
         self.window, self.shift = window, shift
-        self.norm1 = nn.LayerNorm(dim)
+        self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, num_heads, window)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = nn.LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
@@ -159,8 +163,8 @@ class PatchMerging(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * dim)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(4 * dim)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         hgt, wid = hw
@@ -189,8 +193,8 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, embed_dim: int):
         super().__init__()
-        self.proj = nn.Conv2d(3, embed_dim, 4, 4)
-        self.norm = nn.LayerNorm(embed_dim)
+        self.proj = Conv2d(3, embed_dim, 4, 4)
+        self.norm = LayerNorm(embed_dim)
 
 
 class SwinTransformer(nn.Module):
@@ -212,7 +216,7 @@ class SwinTransformer(nn.Module):
                        dpr[sum(full_depths[:i]):], i < len(depths) - 1)
             for i, depth in enumerate(depths))
         for i in self.out_indices:
-            self.add_module(f"norm{i}", nn.LayerNorm(embed_dim * 2 ** i))
+            self.add_module(f"norm{i}", LayerNorm(embed_dim * 2 ** i))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None

@@ -2,8 +2,14 @@
 
 Stochastic depth and dropout draw from an explicit torch.Generator that the
 caller passes down with the input (`generator`); without one (serving, or
-a deterministic training forward) they are identities. Linear and LayerNorm
-(eps 1e-5, fp32 statistics) are torch's own.
+a deterministic training forward) they are identities.
+
+Compute dtype: the parameters stay fp32, and each layer computes in the
+dtype of its input, as the JAX package's layers compute in the model's
+dtype (aot_tpu/models/layers.py:61-103): `Linear` and `Conv2d` cast their
+weights to it at use (the bias added in it), `GroupNorm` and `LayerNorm`
+compute in fp32 and cast back. The model casts its inputs to its compute
+dtype (models/aot.py); in fp32 every cast here is a no-op.
 Submodule names follow the reference PyTorch state dict, so
 `load_state_dict(strict=True)` takes the keys of
 `aot_tpu.utils.torch_import.export_state_dict` as they are.
@@ -21,6 +27,40 @@ import torch.nn.functional as F
 from torch import nn
 
 from aot_tpu_torch.ops import attention as att_ops
+
+
+def _cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(dtype)
+
+
+class Linear(nn.Linear):
+    """nn.Linear in the input's dtype: weight and bias cast at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in the input's dtype: weight and bias cast at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype))
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm computed in fp32, returned in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm (eps 1e-5) computed in fp32, returned in the input's
+    dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
 
 
 def seq_to_2d(x: torch.Tensor, size_2d: Tuple[int, int]) -> torch.Tensor:
@@ -72,7 +112,7 @@ class DropPath(nn.Module):
         return drop_path(x, self.rate, generator)
 
 
-def group_norm_seq(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+def group_norm_seq(gn: GroupNorm, x: torch.Tensor) -> torch.Tensor:
     """GroupNorm over the channels of a (B, HW, C) sequence."""
     return gn(x.transpose(1, 2)).transpose(1, 2)
 
@@ -83,11 +123,13 @@ class GNActDWConv2d(nn.Module):
 
     def __init__(self, features: int, gn_groups: int = 32):
         super().__init__()
-        self.gn = nn.GroupNorm(gn_groups, features)
-        self.conv = nn.Conv2d(features, features, 5, padding=2,
+        self.gn = GroupNorm(gn_groups, features)
+        self.conv = Conv2d(features, features, 5, padding=2,
                               groups=features, bias=False)
 
     def forward(self, x: torch.Tensor, size_2d) -> torch.Tensor:
+        # torch computes a bf16 GELU in fp32 and rounds once, as
+        # aot_tpu/models/layers.py:141 does
         x = F.gelu(group_norm_seq(self.gn, x), approximate="none")
         return seq_from_2d(self.conv(seq_to_2d(x, size_2d)))
 
@@ -99,7 +141,7 @@ class DWConv2d(nn.Module):
 
     def __init__(self, features: int):
         super().__init__()
-        self.conv = nn.Conv2d(features, features, 5, padding=2,
+        self.conv = Conv2d(features, features, 5, padding=2,
                               groups=features, bias=False)
 
     def forward(self, x: torch.Tensor, size_2d) -> torch.Tensor:
@@ -113,9 +155,9 @@ class ConvGN(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
                  gn_groups: int = 8):
         super().__init__()
-        self.conv = nn.Conv2d(in_dim, out_dim, kernel_size,
+        self.conv = Conv2d(in_dim, out_dim, kernel_size,
                               padding=kernel_size // 2)
-        self.gn = nn.GroupNorm(gn_groups, out_dim)
+        self.gn = GroupNorm(gn_groups, out_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.gn(self.conv(x))
@@ -135,10 +177,10 @@ class MultiheadAttention(nn.Module):
         self.use_linear = use_linear
         self.dropout = dropout
         if use_linear:
-            self.linear_Q = nn.Linear(d_model, d_model)
-            self.linear_K = nn.Linear(d_model, d_model)
-            self.linear_V = nn.Linear(d_model, d_model)
-        self.projection = nn.Linear(d_model, d_model)
+            self.linear_Q = Linear(d_model, d_model)
+            self.linear_K = Linear(d_model, d_model)
+            self.linear_V = Linear(d_model, d_model)
+        self.projection = Linear(d_model, d_model)
 
     def forward(self, q, k, v, *, valid_len=None, top_k: int = -1,
                 max_mem_len_ratio: float = -1.0,
@@ -165,12 +207,12 @@ class MultiheadLocalAttention(nn.Module):
         self.dilation = dilation
         self.d_att = d_att if d_att is not None else d_model // num_heads
         self.win2 = (2 * max_dis + 1) ** 2
-        self.relative_emb_k = nn.Conv2d(self.d_att * num_heads,
+        self.relative_emb_k = Conv2d(self.d_att * num_heads,
                                         num_heads * self.win2, 1,
                                         groups=num_heads)
         self.relative_emb_v = nn.Parameter(
             torch.zeros(num_heads, d_model // num_heads, self.win2))
-        self.projection = nn.Linear(d_model, d_model)
+        self.projection = Linear(d_model, d_model)
 
     def forward(self, q, k, v, size_2d) -> torch.Tensor:
         h = self.num_heads
@@ -201,13 +243,13 @@ class GatedPropagation(nn.Module):
         self.use_linear = use_linear
         if use_linear:
             half = d_vu // 2
-            self.linear_QK = nn.Linear(d_qk, self.d_att * h)
-            self.linear_V1 = nn.Linear(half, self.hidden * h // 2)
-            self.linear_V2 = nn.Linear(d_vu - half, self.hidden * h // 2)
-            self.linear_U1 = nn.Linear(half, self.hidden * h // 2)
-            self.linear_U2 = nn.Linear(d_vu - half, self.hidden * h // 2)
+            self.linear_QK = Linear(d_qk, self.d_att * h)
+            self.linear_V1 = Linear(half, self.hidden * h // 2)
+            self.linear_V2 = Linear(d_vu - half, self.hidden * h // 2)
+            self.linear_U1 = Linear(half, self.hidden * h // 2)
+            self.linear_U2 = Linear(d_vu - half, self.hidden * h // 2)
         self.dw_conv = DWConv2d(self.expand_d_vu)
-        self.projection = nn.Linear(self.expand_d_vu, d_vu)
+        self.projection = Linear(self.expand_d_vu, d_vu)
 
     def _cat_halves(self, x1, x2):
         """Interleave two half-width projections head by head."""
@@ -250,11 +292,11 @@ class LocalGatedPropagation(nn.Module):
         self.dilation = dilation
         self.win2 = (2 * max_dis + 1) ** 2
         expand_d_vu = int(d_vu * expand_ratio)
-        self.relative_emb_k = nn.Conv2d(self.d_att * num_heads,
+        self.relative_emb_k = Conv2d(self.d_att * num_heads,
                                         num_heads * self.win2, 1,
                                         groups=num_heads)
         self.dw_conv = DWConv2d(expand_d_vu)
-        self.projection = nn.Linear(expand_d_vu, d_vu)
+        self.projection = Linear(expand_d_vu, d_vu)
 
     def forward(self, q, k, v, u, size_2d) -> torch.Tensor:
         h = self.num_heads

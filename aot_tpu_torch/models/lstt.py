@@ -32,20 +32,20 @@ class LSTTBlockV1(nn.Module):
                  lt_dropout: float = 0.0, st_dropout: float = 0.0,
                  droppath_lst: bool = False):
         super().__init__()
-        self.norm1 = nn.LayerNorm(d_model)
-        self.norm2 = nn.LayerNorm(d_model)
-        self.norm3 = nn.LayerNorm(d_model)
-        self.linear_Q = nn.Linear(d_model, d_model)
-        self.linear_V = nn.Linear(d_model, d_model)
+        self.norm1 = L.LayerNorm(d_model)
+        self.norm2 = L.LayerNorm(d_model)
+        self.norm3 = L.LayerNorm(d_model)
+        self.linear_Q = L.Linear(d_model, d_model)
+        self.linear_V = L.Linear(d_model, d_model)
         self.self_attn = L.MultiheadAttention(d_model, self_heads,
                                               use_linear=True)
         self.long_term_attn = L.MultiheadAttention(
             d_model, att_heads, use_linear=False, dropout=lt_dropout)
         self.short_term_attn = L.MultiheadLocalAttention(
             d_model, att_heads, max_dis=max_dis, dilation=local_dilation)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear1 = L.Linear(d_model, dim_feedforward)
         self.activation = L.GNActDWConv2d(dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear2 = L.Linear(dim_feedforward, d_model)
         self.droppath = L.DropPath(droppath)
         self.droppath_lst = droppath_lst
         self.lst_dropout = max(lt_dropout, st_dropout)
@@ -128,7 +128,7 @@ class LongShortTermTransformer(nn.Module):
         if final_norm:
             num_norms += 1
         self.decoder_norms = nn.ModuleList(
-            nn.LayerNorm(d_model) for _ in range(num_norms))
+            L.LayerNorm(d_model) for _ in range(num_norms))
 
     def fuse_key_value_id(self, layer_idx: int, key, value, id_emb) -> Mem:
         return self.layers[layer_idx].fuse_key_value_id(key, value, id_emb)
@@ -167,7 +167,7 @@ class GroupNorm1D(nn.Module):
 
     def __init__(self, features: int, groups: int):
         super().__init__()
-        self.gn = nn.GroupNorm(groups, features)
+        self.gn = L.GroupNorm(groups, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return L.group_norm_seq(self.gn, x)
@@ -185,22 +185,22 @@ class GatedPropagationModule(nn.Module):
         self.d_model = d_model
         self.att_heads = att_heads
         self.d_att = d_model // 2 if att_heads == 1 else d_model // att_heads
-        self.norm1 = nn.LayerNorm(d_model)
-        self.linear_QV = nn.Linear(d_model, self.d_att * att_heads + expand_d)
-        self.linear_U = nn.Linear(d_model, expand_d)
+        self.norm1 = L.LayerNorm(d_model)
+        self.linear_QV = L.Linear(d_model, self.d_att * att_heads + expand_d)
+        self.linear_U = L.Linear(d_model, expand_d)
         if layer_idx == 0:
-            self.linear_ID_V = nn.Linear(d_model, expand_d)
+            self.linear_ID_V = L.Linear(d_model, expand_d)
         else:
-            self.id_norm1 = nn.LayerNorm(d_model)
-            self.linear_ID_V = nn.Linear(2 * d_model, expand_d)
-            self.linear_ID_U = nn.Linear(d_model, expand_d)
+            self.id_norm1 = L.LayerNorm(d_model)
+            self.linear_ID_V = L.Linear(2 * d_model, expand_d)
+            self.linear_ID_U = L.Linear(d_model, expand_d)
         self.long_term_attn = L.GatedPropagation(
             d_model, d_model * 2, att_heads, d_att=self.d_att,
             use_linear=False)
         self.short_term_attn = L.LocalGatedPropagation(
             d_model, d_model * 2, att_heads, d_att=self.d_att)
-        self.norm2 = nn.LayerNorm(d_model)
-        self.id_norm2 = nn.LayerNorm(d_model)
+        self.norm2 = L.LayerNorm(d_model)
+        self.id_norm2 = L.LayerNorm(d_model)
         self.self_attn = L.GatedPropagation(
             d_model * 2, d_model * 2, self_heads, d_att=self.d_att,
             use_linear=True)

@@ -36,9 +36,12 @@ from aot_tpu_torch.ops.kernels import local_window_attn as lwa
 NEG_INF = -1e30
 
 # Keys handed to global_attention from which a live-length masked read goes
-# to the flash kernel: the JAX package's fp32 default
-# (aot_tpu/ops/attention.py:81).
+# to the flash kernel: the JAX package's defaults for fp32 and bf16
+# operands (aot_tpu/ops/attention.py:79-81), TPU v5e measurements, not yet
+# measured on this card (ROADMAP). At bf16, AOTT's capped 8-frame ring
+# (7,200 keys) takes flash on every step; at fp32 it never does.
 FLASH_MIN_KEYS = 8192
+FLASH_MIN_KEYS_BF16 = 4096
 
 # Query tokens above which a dilation-1 local read takes the wide route:
 # the JAX package's crossover between its flat and wide kernels,
@@ -77,7 +80,10 @@ def _mem_len_rescale(q: torch.Tensor, valid_len, q_len: int,
         ratio = valid_len / q_len
         if ratio <= max_mem_len_ratio:
             return q
-        return q * (math.log(ratio) / math.log(max_mem_len_ratio))
+        # the factor rounded to q's dtype first, as the JAX package does
+        factor = torch.tensor(math.log(ratio) / math.log(max_mem_len_ratio),
+                              dtype=q.dtype)
+        return q * factor.item()
     ratio = valid_len.float() / q_len
     scaling = torch.log(ratio) / math.log(max_mem_len_ratio)
     factor = torch.where(ratio > max_mem_len_ratio, scaling,
@@ -118,18 +124,20 @@ def in_training() -> bool:
     return _TRAINING
 
 
-def use_flash(lk: int, valid_len, top_k: int,
-              max_mem_len_ratio: float) -> bool:
+def use_flash(lk: int, valid_len, top_k: int, max_mem_len_ratio: float,
+              dtype: torch.dtype = torch.float32) -> bool:
     """The dispatch rule of aot_tpu/ops/attention.py:128 `_use_flash`:
     neither top-k filtering nor the memory-length rescale (those stay on the
     dense path), and then, in training, every read; at serving, a read of a
-    live-length masked memory (`valid_len` given) of at least FLASH_MIN_KEYS
-    keys."""
+    live-length masked memory (`valid_len` given) of at least
+    FLASH_MIN_KEYS_BF16 keys for bf16 operands (`dtype`, k's), else
+    FLASH_MIN_KEYS."""
     if top_k > 0 or max_mem_len_ratio > 0:
         return False
     if in_training():
         return True
-    return valid_len is not None and lk >= FLASH_MIN_KEYS
+    least = FLASH_MIN_KEYS_BF16 if dtype == torch.bfloat16 else FLASH_MIN_KEYS
+    return valid_len is not None and lk >= least
 
 
 def global_attention(
@@ -148,11 +156,14 @@ def global_attention(
     q: (B, Lq, h*d)   k: (B, Lk, h*d)   v: (B, Lk, Cv)
     valid_len: None (all keys live), an int, or a (B,) int tensor — keys
       at or beyond it are masked out.
-    Returns (B, Lq, Cv) in v.dtype.
+    Returns (B, Lq, Cv) in v.dtype. At bf16 (aot_tpu/ops/attention.py:
+    158-224): fp32 scores and softmax, P cast to v's dtype, P V summed in
+    fp32, the output cast to v's dtype (bf16 operands widen to fp32
+    exactly).
     """
     b, lq, cq = q.shape
     lk = k.shape[1]
-    if use_flash(lk, valid_len, top_k, max_mem_len_ratio):
+    if use_flash(lk, valid_len, top_k, max_mem_len_ratio, k.dtype):
         if in_training():
             return fa.flash_attention_train(q, k, v, valid_len, num_heads,
                                             d_att).to(v.dtype)
@@ -174,13 +185,15 @@ def global_attention(
     else:
         key_ok = None
 
+    kf, vf = kh.float(), vh.float()          # no copy at fp32
+
     def attend(qc):
-        scores = qc @ kh.transpose(-1, -2)
+        scores = qc.float() @ kf.transpose(-1, -2)
         if key_ok is not None:
             scores = scores.masked_fill(~key_ok, NEG_INF)
         scores = _topk_filter(scores, top_k)
         attn = torch.softmax(scores, dim=-1).to(v.dtype)
-        return attn @ vh
+        return attn.float() @ vf
 
     # bound the score tensor to ~_SCORE_BUDGET elements by chunking queries
     if b * h * lq * lk > _SCORE_BUDGET and lq > 256:

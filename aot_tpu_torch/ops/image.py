@@ -36,6 +36,13 @@ def interpolate_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return x.index_select(-3, iy).index_select(-2, ix)
 
 
+def nearest_labels(labels: torch.Tensor, size: Tuple[int, int]
+                   ) -> torch.Tensor:
+    """(B, H, W) int labels -> (B, h, w) int64 at `size` (nearest): a mask
+    at the original size brought to an engine's input size."""
+    return interpolate_nearest(labels[..., None].float(), size)[..., 0].long()
+
+
 def flip_horizontal(x: torch.Tensor) -> torch.Tensor:
     """Mirror (B, H, W) label maps or (B, H, W, C) images left to right
     (the evaluator's flip TTA; jnp.flip(x, axis=2) in the JAX package)."""
@@ -56,6 +63,32 @@ def upsample_argmax(logits: torch.Tensor, size: Tuple[int, int],
     up = F.interpolate(logits.permute(0, 3, 1, 2), size=tuple(size),
                        mode="bilinear", align_corners=align_corners)
     return up.argmax(dim=1)
+
+
+def pack_labels_4bit(labels: torch.Tensor) -> torch.Tensor:
+    """Pack a (..., W) label map with values <= 15 into (..., ceil(W/2))
+    uint8, two labels a byte, the even column in the low nibble; an odd W
+    is padded by one zero column (aot_tpu/ops/image.py:156). Halves the
+    bytes of the masks a chunk copies to the host."""
+    if labels.shape[-1] % 2:
+        labels = F.pad(labels, (0, 1))
+    lo = labels[..., 0::2].to(torch.uint8)
+    hi = labels[..., 1::2].to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_labels_4bit_np(packed: np.ndarray, w: int) -> np.ndarray:
+    """Host-side inverse of pack_labels_4bit: (..., P) uint8 -> (..., w)
+    uint8 (aot_tpu/ops/image.py:193)."""
+    out = np.stack([packed & 0xF, packed >> 4], axis=-1)
+    return out.reshape(packed.shape[:-1] + (-1,))[..., :w]
+
+
+def label_to_onehot_probs(label: torch.Tensor,
+                          num_classes: int) -> torch.Tensor:
+    """(...) int labels -> (..., num_classes) fp32 one-hot probabilities
+    (aot_tpu/ops/image.py:205)."""
+    return F.one_hot(label.long(), num_classes).float()
 
 
 def _resize_matrix(in_size: int, out_size: int, align_corners: bool,

@@ -9,18 +9,23 @@ ops/attention.py `use_flash`.
   flash_attention        entry point: a CPU tensor takes the plain version,
                          a CUDA tensor launches the kernel or raises — there
                          is no fallback
-  flash_attention_cuda   the kernel wrapper (counts LAUNCHES: one per call,
-                         which runs the kernel's passes: the scores and
-                         P V for dv > 128, and the merge of key splits)
+  flash_attention_cuda   the kernel wrapper (counts LAUNCHES, or
+                         BF16_LAUNCHES for bf16: one per call, which runs
+                         the kernel's passes: the scores and P V for
+                         dv > 128, and the merge of key splits)
   flash_attention_plain  the same function in plain PyTorch: a masked
                          softmax over the live keys
   flash_attention_train  the differentiable form (the `FlashAttention`
                          autograd Function): this forward, and the backward
                          of ops/kernels/flash_attn_bwd.py
 
-All three return (out, lse): out (B, Lq, h*dv) in fp32; lse (B*h, Lq), the
-log-sum-exp of the scaled scores over the live keys. A row with no live key
-gives out 0 and lse -1e30, as the TPU kernel does (:89-96).
+All three return (out, lse): out (B, Lq, h*dv) in v's dtype; lse (B*h,
+Lq), fp32, the log-sum-exp of the scaled scores over the live keys. A row
+with no live key gives out 0 and lse -1e30, as the TPU kernel does
+(:89-96). q, k and v are fp32, or bf16 for serving (the kernel's bf16
+instantiation): fp32 scores, softmax statistics and accumulation, P
+rounded to bf16 before P V (`_fwd_kernel` at bf16, :41-93). The backward
+and so `flash_attention_train` take fp32 only.
 valid_len: None (all Lk keys live), an int, or a (B,) int tensor; keys at or
 beyond it, or beyond Lk, are dead.
 """
@@ -49,10 +54,11 @@ SLAB_FLOATS = 1 << 26
 
 ValidLen = Union[None, int, torch.Tensor]
 
-# Kernel launches since the count was last reset; the wrapper adds one per
-# launch and nothing else touches it, so a run can show it went through the
-# kernel.
+# Kernel launches since the count was last reset, fp32 and bf16 apart; the
+# wrapper adds one per launch and nothing else touches them, so a run can
+# show it went through the kernel.
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 
 
 def _dims(q, v, num_heads: int, d_att: Optional[int]) -> Tuple[int, int]:
@@ -60,12 +66,21 @@ def _dims(q, v, num_heads: int, d_att: Optional[int]) -> Tuple[int, int]:
     return d, v.shape[-1] // num_heads
 
 
-def shape_error(d: int, dv: int) -> Optional[str]:
-    """Why the kernel does not take per-head widths (d, dv), or None."""
-    if not (0 < d <= MAX_D and d % 4 == 0):
-        return f"d={d} (a multiple of 4, at most {MAX_D})"
-    if not (dv > 0 and dv % 4 == 0):
-        return f"dv={dv} (a positive multiple of 4)"
+# Elements a 16-byte copy moves: the kernel's widths and strides are
+# multiples of it, for each q/k/v type it takes; and its C entry point
+_VEC = {torch.float32: 4, torch.bfloat16: 8}
+_ENTRY = {torch.float32: "flash_attn_fwd", torch.bfloat16: "flash_attn_fwd_bf16"}
+
+
+def shape_error(d: int, dv: int,
+                dtype: torch.dtype = torch.float32) -> Optional[str]:
+    """Why the kernel does not take per-head widths (d, dv) at `dtype`, or
+    None."""
+    vec = _VEC[dtype]
+    if not (0 < d <= MAX_D and d % vec == 0):
+        return f"d={d} (a multiple of {vec}, at most {MAX_D})"
+    if not (dv > 0 and dv % vec == 0):
+        return f"dv={dv} (a positive multiple of {vec})"
     return None
 
 
@@ -81,10 +96,11 @@ def flash_attention_plain(
     lk = k.shape[1]
     h = num_heads
     d, dv = _dims(q, v, h, d_att)
-    qh = (q / math.sqrt(d)).reshape(b, lq, h, d).transpose(1, 2)
-    kh = k.reshape(b, lk, h, d).transpose(1, 2)
-    vh = v.reshape(b, lk, h, dv).transpose(1, 2)
-    scores = (qh @ kh.transpose(-1, -2)).float()
+    # fp32 scores of the widened operands (no copy at fp32)
+    qh = (q.float() / math.sqrt(d)).reshape(b, lq, h, d).transpose(1, 2)
+    kh = k.float().reshape(b, lk, h, d).transpose(1, 2)
+    vh = v.float().reshape(b, lk, h, dv).transpose(1, 2)
+    scores = qh @ kh.transpose(-1, -2)
     if valid_len is not None:
         live = torch.as_tensor(valid_len, device=q.device).reshape(-1, 1)
         key_ok = torch.arange(lk, device=q.device) < live    # (B or 1, Lk)
@@ -92,19 +108,21 @@ def flash_attention_plain(
     lse = torch.logsumexp(scores, dim=-1)                    # -inf: no key
     empty = torch.isneginf(lse)
     p = torch.exp(scores - lse.masked_fill(empty, 0.0)[..., None])
-    out = (p.to(v.dtype) @ vh).transpose(1, 2).reshape(b, lq, h * dv)
-    return out.float(), lse.masked_fill(empty, NEG_INF).reshape(b * h, lq)
+    # P in v's dtype (no rounding at fp32), P V summed in fp32
+    out = (p.to(v.dtype).float() @ vh).transpose(1, 2).reshape(b, lq, h * dv)
+    return (out.to(v.dtype),
+            lse.masked_fill(empty, NEG_INF).reshape(b * h, lq))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attn_fwd")
-    fn = lib.flash_attn_fwd
+def _entry(dtype: torch.dtype):
+    """The kernel's instantiation for q/k/v/out of `dtype`."""
+    fn = getattr(_build.load("flash_attn_fwd"), _ENTRY[dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                        + [ctypes.c_longlong] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _splits(blocks: int, slots: int, most: int) -> int:
@@ -156,16 +174,18 @@ def fwd_plan(b: int, lq: int, lk: int, num_heads: int, dv: int,
                           if splits > 1 else 0)
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    """fp32 on `device`, of `shape`, rows contiguous, strides and address
-    16-byte aligned (the kernel reads float4s)."""
-    ok = (t.device == device and t.dtype == torch.float32
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype: torch.dtype = torch.float32) -> None:
+    """`dtype` on `device`, of `shape`, rows contiguous, strides and address
+    16-byte aligned (the kernel copies 16 bytes at a time)."""
+    vec = _VEC[dtype]
+    ok = (t.device == device and t.dtype == dtype
           and tuple(t.shape) == tuple(shape) and t.stride(-1) == 1
-          and t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
+          and t.stride(0) % vec == 0 and t.stride(1) % vec == 0
           and t.data_ptr() % 16 == 0)
     if not ok:
         raise ValueError(
-            f"flash_attention_cuda: {name} must be a float32 tensor of shape "
+            f"flash_attention_cuda: {name} must be a {dtype} tensor of shape "
             f"{tuple(shape)} on {device} with unit channel stride and "
             f"16-byte aligned strides; got {t.dtype} {tuple(t.shape)} "
             f"strides {t.stride()} on {t.device}")
@@ -179,24 +199,29 @@ def flash_attention_cuda(
     num_heads: int,
     d_att: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel (fp32). q, k, v may be strided views (the LT
-    ring's live prefix) as long as each token's channels are contiguous.
-    Raises on any input it does not take, and if the launch fails."""
-    global LAUNCHES
+    """Launch the CUDA kernel (fp32 or bf16 q, k, v). q, k, v may be
+    strided views (the LT ring's live prefix) as long as each token's
+    channels are contiguous. Raises on any input it does not take, and if
+    the launch fails."""
+    global LAUNCHES, BF16_LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: q is on {q.device}")
+    dt = q.dtype
+    if dt not in _ENTRY:
+        raise ValueError(f"flash_attention_cuda: q is {dt}; the kernel takes "
+                         f"{sorted(str(t) for t in _ENTRY)}")
     b, lq, _ = q.shape
     lk = k.shape[1]
     h = num_heads
     d, dv = _dims(q, v, h, d_att)
-    why = shape_error(d, dv)
+    why = shape_error(d, dv, dt)
     if why is not None or v.shape[-1] != h * dv or lq < 1:
         raise ValueError(f"flash_attention_cuda: unsupported {why or ''} "
                          f"(heads={h}, v width {v.shape[-1]}, Lq={lq})")
     dev = q.device
-    _check("q", q, (b, lq, h * d), dev)
-    _check("k", k, (b, lk, h * d), dev)
-    _check("v", v, (b, lk, h * dv), dev)
+    _check("q", q, (b, lq, h * d), dev, dt)
+    _check("k", k, (b, lk, h * d), dev, dt)
+    _check("v", v, (b, lk, h * dv), dev, dt)
     valid_ptr, valid_all = None, lk
     if isinstance(valid_len, torch.Tensor):
         if (valid_len.device != dev or valid_len.dtype != torch.int32
@@ -214,9 +239,9 @@ def flash_attention_cuda(
                                                    sm_count(dev))
     part = (torch.empty(scratch, device=dev, dtype=torch.float32)
             if scratch else None)
-    out = torch.empty((b, lq, h * dv), device=dev, dtype=torch.float32)
+    out = torch.empty((b, lq, h * dv), device=dev, dtype=dt)
     lse = torch.empty((b * h, lq), device=dev, dtype=torch.float32)
-    err = _lib().flash_attn_fwd(
+    err = _entry(dt)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, out.data_ptr(),
         lse.data_ptr(), None if part is None else part.data_ptr(), splits,
         score_splits, slab, b, h, lq, lk, d, dv, valid_all,
@@ -225,8 +250,11 @@ def flash_attention_cuda(
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attn_fwd failed to launch: CUDA error {err}")
-    LAUNCHES += 1
+            f"{_ENTRY[dt]} failed to launch: CUDA error {err}")
+    if dt == torch.bfloat16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out, lse
 
 
@@ -285,5 +313,12 @@ def flash_attention_train(
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
     """Softmax attention over the live keys with a flash backward; returns
-    out (B, Lq, h*dv) fp32. valid_len None means all keys live."""
+    out (B, Lq, h*dv) fp32. valid_len None means all keys live. fp32 only:
+    no backward kernel is built for bf16 (ROADMAP.md, Queue 1, bf16
+    training), so bf16 inputs raise."""
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention_train takes float32 q, k, v; got "
+            f"{q.dtype}/{k.dtype}/{v.dtype} (the flash backward has no bf16 "
+            "kernel: ROADMAP.md, Queue 1, bf16 training)")
     return FlashAttention.apply(q, k, v, valid_len, num_heads, d_att)

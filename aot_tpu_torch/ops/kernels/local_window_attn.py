@@ -14,9 +14,10 @@ which grids went where; both launch the same kernel with the plan of
                                      plain version, a CUDA tensor launches
                                      the kernel on the flat route or raises
                                      — there is no fallback
-  local_window_attention_cuda        the flat route's wrapper (LAUNCHES)
+  local_window_attention_cuda        the flat route's wrapper (LAUNCHES;
+                                     BF16_LAUNCHES for bf16)
   local_window_attention_wide_cuda   the wide route's wrapper
-                                     (WIDE_LAUNCHES)
+                                     (WIDE_LAUNCHES; WIDE_BF16_LAUNCHES)
   local_window_attention_plain       the same function in plain PyTorch:
                                      the win² shifted slices of the
                                      zero-padded image (F.unfold), no
@@ -27,6 +28,10 @@ which grids went where; both launch the same kernel with the plan of
 
 Layouts: q, k (B, HW, h*d); v (B, HW, h*dv); rel_bias (B, h, HW, win²);
 rel_v (h, dv, win²) or None; out (B, HW, h*dv).
+Types: q, k, v and out fp32, or bf16 (bf16 serving: the kernel's bf16
+instantiation); rel_bias and rel_v fp32. Both versions compute in fp32
+(bf16 inputs widened exactly) and write out in q's dtype, as the TPU
+kernels do (local_window_attn.py:420-469).
 """
 
 from __future__ import annotations
@@ -47,11 +52,13 @@ MAX_DIS = 7       # window of at most 15 x 15 slots: 16 + 2*7 halo keys fit
 MAX_D = 512       # q/k channels per head: a 1-row score tile's q rows and
                   # k ring must fit shared memory
 
-# Kernel launches since the count was last reset, one count per route; each
-# wrapper adds one per launch and nothing else touches them, so a run can
-# show it went through the kernel.
-LAUNCHES = 0         # the flat route (up to DENSE_LOCAL_MAX_TOKENS)
-WIDE_LAUNCHES = 0    # the wide route (above it)
+# Kernel launches since the count was last reset, one count per route and
+# instantiation; each wrapper adds one per launch and nothing else touches
+# them, so a run can show it went through the kernel.
+LAUNCHES = 0              # the flat route (up to DENSE_LOCAL_MAX_TOKENS), fp32
+WIDE_LAUNCHES = 0         # the wide route (above it), fp32
+BF16_LAUNCHES = 0         # the flat route, bf16
+WIDE_BF16_LAUNCHES = 0    # the wide route, bf16
 
 # csrc/local_window_attn_tc.cu's geometry
 TILE_X = 16           # queries a tile row (the mma tile's rows)
@@ -101,14 +108,14 @@ def local_window_attention_plain(
                         dilation=dilation, padding=max_dis * dilation)
         return cols.view(b * h, dd, win2, hw)
 
-    qt = (q / math.sqrt(d)).reshape(b, hw, h, d).permute(0, 2, 3, 1)
+    qt = (q.float() / math.sqrt(d)).reshape(b, hw, h, d).permute(0, 2, 3, 1)
     scores = torch.einsum("ncq,ncwq->nqw", qt.reshape(b * h, d, hw),
-                          windows(k, d))
+                          windows(k.float(), d))
     scores = scores + rel_bias.reshape(b * h, hw, win2)
     valid = _window_valid(hgt, wid, max_dis, dilation, q.device)
     scores = scores.masked_fill(~valid, NEG_INF)
     attn = torch.softmax(scores.float(), dim=-1)   # masked slots exactly 0
-    out = torch.einsum("nqw,ncwq->nqc", attn.to(v.dtype), windows(v, dv))
+    out = torch.einsum("nqw,ncwq->nqc", attn, windows(v.float(), dv))
     out = out.reshape(b, h, hw, dv)
     if rel_v is not None:
         out = out + torch.einsum("bhqw,hcw->bhqc",
@@ -178,23 +185,29 @@ def launch_plan(b: int, h: int, hgt: int, wid: int, d: int, dv: int,
     return LaunchPlan(tuple(rows), tuple(blocks), scratch)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("local_window_attn_tc")
-    fn = lib.local_window_attn_tc_fwd
+# the C entry point of each q/k/v/out type
+_ENTRY = {torch.float32: "local_window_attn_tc_fwd",
+          torch.bfloat16: "local_window_attn_tc_fwd_bf16"}
+
+
+def _entry(dtype: torch.dtype):
+    """The kernel's instantiation for q/k/v/out of `dtype`."""
+    fn = getattr(_build.load("local_window_attn_tc"), _ENTRY[dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_float,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _check(fn: str, name: str, t: torch.Tensor, shape, device) -> None:
-    if (t.device != device or t.dtype != torch.float32
+def _check(fn: str, name: str, t: torch.Tensor, shape, device,
+           dtype: torch.dtype) -> None:
+    if (t.device != device or t.dtype != dtype
             or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
             or t.data_ptr() % 16 != 0):
         raise ValueError(
-            f"{fn}: {name} must be a contiguous, 16-byte aligned float32 "
+            f"{fn}: {name} must be a contiguous, 16-byte aligned {dtype} "
             f"tensor of shape {tuple(shape)} on {device}; got {t.dtype} "
             f"{tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})")
 
@@ -224,19 +237,23 @@ def _launch(fn: str, q, k, v, rel_bias, rel_v, num_heads, size_2d, max_dis,
         raise ValueError(f"{fn}: unsupported {why or ''} (heads={h}, v width "
                          f"{v.shape[-1]})")
     dev = q.device
-    _check(fn, "q", q, (b, hw, h * d), dev)
-    _check(fn, "k", k, (b, hw, h * d), dev)
-    _check(fn, "v", v, (b, hw, h * dv), dev)
-    _check(fn, "rel_bias", rel_bias, (b, h, hw, win2), dev)
+    dt = q.dtype
+    if dt not in _ENTRY:
+        raise ValueError(f"{fn}: q is {dt}; the kernel takes "
+                         f"{sorted(str(t) for t in _ENTRY)}")
+    _check(fn, "q", q, (b, hw, h * d), dev, dt)
+    _check(fn, "k", k, (b, hw, h * d), dev, dt)
+    _check(fn, "v", v, (b, hw, h * dv), dev, dt)
+    _check(fn, "rel_bias", rel_bias, (b, h, hw, win2), dev, torch.float32)
     if rel_v is not None:
-        _check(fn, "rel_v", rel_v, (h, dv, win2), dev)
+        _check(fn, "rel_v", rel_v, (h, dv, win2), dev, torch.float32)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = launch_plan(b, h, hgt, wid, d, dv, max_dis, sms)
     scratch = (torch.empty(plan.scratch_floats, device=dev,
                            dtype=torch.float32)
                if plan.scratch_floats else None)
-    out = torch.empty((b, hw, h * dv), device=dev, dtype=torch.float32)
-    err = _lib().local_window_attn_tc_fwd(
+    out = torch.empty((b, hw, h * dv), device=dev, dtype=dt)
+    err = _entry(dt)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
         None if rel_v is None else rel_v.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(), b, h, hgt, wid, d,
@@ -244,7 +261,7 @@ def _launch(fn: str, q, k, v, rel_bias, rel_v, num_heads, size_2d, max_dis,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"local_window_attn_tc_fwd failed to launch: CUDA error {err}")
+            f"{_ENTRY[dt]} failed to launch: CUDA error {err}")
     return out
 
 
@@ -260,12 +277,15 @@ def local_window_attention_cuda(
     max_dis: int = 7,
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
-    """The flat route: launch the CUDA kernel (dilation 1, fp32). Raises on
-    any input it does not take, and if the launch fails."""
-    global LAUNCHES
+    """The flat route: launch the CUDA kernel (dilation 1, fp32 or bf16).
+    Raises on any input it does not take, and if the launch fails."""
+    global LAUNCHES, BF16_LAUNCHES
     out = _launch("local_window_attention_cuda", q, k, v, rel_bias, rel_v,
                   num_heads, size_2d, max_dis, d_att)
-    LAUNCHES += 1
+    if q.dtype == torch.bfloat16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -281,12 +301,15 @@ def local_window_attention_wide_cuda(
     max_dis: int = 7,
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
-    """The wide route: the same kernel, counted apart (dilation 1, fp32).
-    Raises on any input it does not take, and if the launch fails."""
-    global WIDE_LAUNCHES
+    """The wide route: the same kernel, counted apart (dilation 1, fp32 or
+    bf16). Raises on any input it does not take, and if the launch fails."""
+    global WIDE_LAUNCHES, WIDE_BF16_LAUNCHES
     out = _launch("local_window_attention_wide_cuda", q, k, v, rel_bias,
                   rel_v, num_heads, size_2d, max_dis, d_att)
-    WIDE_LAUNCHES += 1
+    if q.dtype == torch.bfloat16:
+        WIDE_BF16_LAUNCHES += 1
+    else:
+        WIDE_LAUNCHES += 1
     return out
 
 

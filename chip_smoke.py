@@ -6,15 +6,16 @@ PyTorch built for CUDA:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-eval [--no-autotune]
-    python3 chip_smoke.py --profile-serve MODEL
+    python3 chip_smoke.py --profile-serve MODEL [--batch N]
 
 The second form profiles phase 12's evaluation and runs nothing else
 (`profile_full_res_eval`); the third profiles a model's serving path, as
-phases 6, 14 and 16 run it, before and after the flash switch
-(`profile_serving`).
+phases 6, 14 and 16 run it (with --batch N: N videos a step, as phase 21),
+before and after the flash switch (`profile_serving`).
 
-Phases (2, 3, 8 and 9, the kernel checks, run first, then 4 to 7, then 10
-to 18); any failure raises and the exit code is non-zero:
+Phases (2, 3, 8, 9 and 19, the kernel checks, run first, then 4 to 7,
+then 10 to 18, then 20 to 22); any failure raises and the exit code is
+non-zero:
   0. refuse to run without a card; print the card's name and power limit
      (nvidia-smi) and the torch/CUDA versions; TF32 off for matmuls and
      convolutions.
@@ -138,10 +139,41 @@ to 18); any failure raises and the exit code is non-zero:
      per variant the output checks, the grid, the launches by kernel
      (asserted against the LT schedule), the median ms/frame, the peak
      memory, and the reference repository's 1xV100 FPS labelled as that.
- 19. one JSON line with the kernels (launches summed over the main paths;
-     each kernel's time, plain time, bound and library time at its main
-     shape), the card line, and last the result line {"ok": true,
-     "device": {...}}.
+ 19. the bf16 instantiations (bf16 serving) against their bf16 plain
+     versions (max abs error <= 1e-2 of the largest entry; the plain
+     versions widen to fp32, the flash one rounds P to bf16): the
+     local-window kernel at the AOT and DeAOT heads at 30x30 with B = 1 and
+     4 (flat route) and at 64x113 (wide route), the flash forward over
+     AOTT-shaped LT rings (Lq=900, Lk=7,200, h=8, d=32, live 900 to 7,200)
+     and DeAOTL's (Lq=900, Lk=19,800, d=128, dv=1024) with B = 1 and 4;
+     each timed beside the bf16 plain version, bf16
+     F.scaled_dot_product_attention (its backend named; the DeAOT local
+     head with the dense window bias) and the bound at the bf16 rate
+     (max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s)); at B = 4 also the fp32
+     kernels, checked and timed.
+ 20. bf16 serving (TEST_DTYPE=bfloat16): AOTT and DeAOTL as 4 and 6 on the
+     same clip, ms/frame (median, p90) beside this call's fp32 runs, masks
+     against the fp32 runs' (mean >= 99.5%, worst frame >= 99.0%),
+     launches from the bf16 rule (flash from 4,096 live keys: DeAOTL from
+     step 21); phase 12's clip with --amp (the wide route's bf16
+     instantiation); each of the 14 variants as 18, at bf16.
+ 21. batched multi-video serving (VOSInferEngine.step_videos): AOTT with
+     N = 1, 2, 4, 8 and DeAOTL with N = 1, 2, 4 (55 steps, through the
+     flash switch) on seeded clips: ms a step, frames/s in all, peak
+     memory; at the largest N each row stepped alone from a copy of its
+     state at three steps: grid logits within 1e-4, masks >= 99.9%, and
+     whether the two are bit-identical.
+ 22. chunked serving (VOSInferEngine.step_chunk, K = 8, under
+     torch.cuda.set_sync_debug_mode("error")): AOTT and DeAOTL over 56
+     frames, masks bit-identical to per-frame stepping, ms/frame of each;
+     then `python -m aot_tpu_torch.eval` on a written DAVIS-2017 480p folder
+     of 5 clips: the scalar run, --video_batch 4 --frame_chunk 8 (PNGs
+     equal to the scalar run's) and the same with --amp (>= 99.5%).
+ 23. one JSON line with the kernels (the bf16 instantiations as entries of
+     their own; launches summed over the main paths; each kernel's time,
+     plain time, bound and library time at its main shape), the card line,
+     and last the result line {"ok": true, "device": {...}}; every kernel
+     must have been launched by a main path.
 """
 
 from __future__ import annotations
@@ -193,6 +225,12 @@ EVAL_WARMUP = 3           # of the evaluator's timed frames
 # read once, each output written once) over the HBM3 bandwidth.
 PEAK_FP32_ACCURATE_TC_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
+# bf16 serving (phases 19-22): the same work on bf16 operands could run at
+# the dense bf16 tensor-core rate, and moves half the bytes of q, k, v and
+# out
+PEAK_BF16_TC_FLOPS = 989e12
+BF16_TOL = 1e-2       # of the largest entry: bf16 kernel vs bf16 plain
+BATCH_TOL = 1e-4      # phase 21: a batch row's logits vs the video alone
 
 # kernel name -> (module under aot_tpu_torch.ops.kernels, the launch counter
 # its wrapper keeps, the TPU kernel it replaces, its source csrc/<source>.cu).
@@ -212,7 +250,31 @@ KERNELS = {
     "flash_attn_bwd": ("flash_attn_bwd", "LAUNCHES",
                        "aot_tpu/ops/pallas/flash_attn_vjp.py:267",
                        "flash_attn_bwd"),
+    # the bf16 instantiations (bf16 serving), each with its own count
+    "local_window_attn_bf16": ("local_window_attn", "BF16_LAUNCHES",
+                               "aot_tpu/ops/pallas/local_window_attn.py:414",
+                               "local_window_attn_tc"),
+    "local_window_attn_wide_bf16": (
+        "local_window_attn", "WIDE_BF16_LAUNCHES",
+        "aot_tpu/ops/pallas/local_window_attn.py:236",
+        "local_window_attn_tc"),
+    "flash_attn_fwd_bf16": ("flash_attn", "BF16_LAUNCHES",
+                            "aot_tpu/ops/pallas/flash_attn_vjp.py:51",
+                            "flash_attn_fwd"),
 }
+
+
+def expected_launches(kernels, frames: int, flash_reads: int, layers: int,
+                      bf16: bool = False, wide: bool = False):
+    """Launches by kernel name of `frames` LSTT forwards (one local read a
+    block each, on the wide or the flat route) with `flash_reads` LT reads
+    on the flash kernel, at fp32 or bf16."""
+    want = {name: 0 for name in kernels}
+    sfx = "_bf16" if bf16 else ""
+    want[("local_window_attn_wide" if wide else "local_window_attn")
+         + sfx] = frames * layers
+    want["flash_attn_fwd" + sfx] = flash_reads * layers
+    return want
 
 
 def reset_counts(kernels) -> None:
@@ -222,6 +284,12 @@ def reset_counts(kernels) -> None:
 
 def read_counts(kernels):
     return {name: getattr(mod, attr) for name, (mod, attr) in kernels.items()}
+
+
+def restore_counts(kernels, counts) -> None:
+    """Set the counts back (a check's own launches are not the path's)."""
+    for name, (mod, attr) in kernels.items():
+        setattr(mod, attr, counts[name])
 
 
 def card_line() -> str:
@@ -450,18 +518,20 @@ def time_fns(fns, runs: int = 50, warmup: int = 10):
     return {name: float(np.median(t)) for name, t in samples.items()}
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float,
+          peak_flops: float = PEAK_FP32_ACCURATE_TC_FLOPS):
     """(ms, 'operations' or 'bytes'): the least time the card could take."""
-    t_ops = flops / PEAK_FP32_ACCURATE_TC_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def local_bound(b, hgt, wid, h, d, dv, with_rv, max_dis=7):
+def local_bound(b, hgt, wid, h, d, dv, with_rv, max_dis=7, bf16=False):
     """Local-window attention: per head and query, 2d FLOPs of q.k and 2dv
     of p.v (2dv more for p.rel_v) for each window slot inside the image
     (slots outside are never read); q, k, v, rel_bias, rel_v read once and
-    out written once, fp32."""
+    out written once; q, k, v and out fp32 (or bf16, at the bf16 rate),
+    rel_bias and rel_v fp32."""
     r = np.arange(-max_dis, max_dis + 1)
     rows = ((np.arange(hgt)[:, None] + r) >= 0) & (
         (np.arange(hgt)[:, None] + r) < hgt)
@@ -471,9 +541,11 @@ def local_bound(b, hgt, wid, h, d, dv, with_rv, max_dis=7):
     flops = b * h * slots * (2 * d + 2 * dv * (2 if with_rv else 1))
     win2 = (2 * max_dis + 1) ** 2
     hw = hgt * wid
-    nbytes = 4 * (b * hw * h * (2 * d + 2 * dv) + b * h * hw * win2
-                  + (h * dv * win2 if with_rv else 0))
-    return bound(flops, nbytes)
+    elem = 2 if bf16 else 4
+    nbytes = (elem * b * hw * h * (2 * d + 2 * dv)
+              + 4 * (b * h * hw * win2 + (h * dv * win2 if with_rv else 0)))
+    return bound(flops, nbytes,
+                 PEAK_BF16_TC_FLOPS if bf16 else PEAK_FP32_ACCURATE_TC_FLOPS)
 
 
 def flash_fwd_bound(b, lq, live, h, d, dv):
@@ -484,13 +556,16 @@ def flash_fwd_bound(b, lq, live, h, d, dv):
     return bound(flops, nbytes)
 
 
-def flash_fwd_bound_live(lq, live, h, d, dv):
+def flash_fwd_bound_live(lq, live, h, d, dv, bf16=False):
     """flash_fwd_bound over a batch whose elements have their own live key
-    counts `live` (dead keys are never read)."""
+    counts `live` (dead keys are never read); bf16: q, k, v and out in
+    bf16 (lse fp32), at the bf16 rate."""
+    elem = 2 if bf16 else 4
     flops = sum(2.0 * h * lq * n * (d + dv) for n in live)
-    nbytes = 4 * sum(lq * h * (d + dv) + n * h * (d + dv) + h * lq
-                     for n in live)
-    return bound(flops, nbytes)
+    nbytes = sum(elem * (lq * h * (d + dv) + n * h * (d + dv)) + 4 * h * lq
+                 for n in live)
+    return bound(flops, nbytes,
+                 PEAK_BF16_TC_FLOPS if bf16 else PEAK_FP32_ACCURATE_TC_FLOPS)
 
 
 def flash_bwd_bound(b, lq, live, h, d, dv):
@@ -695,10 +770,12 @@ def seeded_model(cfg, device):
 
 
 def run_main_path(model, cfg, video, mask, steps: int, kernels,
-                  size: int = SIZE):
-    """Phases 4, 6, 14, 16 and 18 at `size` x `size` (the video's frames),
-    on the model's device. Returns (engine, state, shadow, per-step
-    seconds, per-step flash flags, launches by kernel name)."""
+                  size: int = SIZE, preds=None):
+    """Phases 4, 6, 14, 16, 18 and 20 at `size` x `size` (the video's
+    frames), on the model's device, in its compute dtype. Returns (engine,
+    state, shadow, per-step seconds, per-step flash flags, launches by
+    kernel name); each step's mask is appended to `preds` (a list) when
+    one is given, outside the timed region."""
     from aot_tpu_torch.engine import build_infer_engine
     from aot_tpu_torch.ops.attention import use_flash
 
@@ -720,13 +797,16 @@ def run_main_path(model, cfg, video, mask, steps: int, kernels,
         # the LT read of step t sees the frames written before it
         live = shadow.count * hw
         flash_steps.append(use_flash(live, live, eng.engine.top_k,
-                                     eng.engine.max_mem_len_ratio))
+                                     eng.engine.max_mem_len_ratio,
+                                     model.compute_dtype))
         t0 = time.perf_counter()
         state, pred, logits = grow_then_step(eng, shadow, state, frames[t], t,
                                              (size, size))
         sync()
         seconds.append(time.perf_counter() - t0)
         check_step_outputs(pred, logits, size)   # outside the timed region
+        if preds is not None:
+            preds.append(pred.to(torch.uint8).cpu())
     launches = read_counts(kernels)
     return eng, state, shadow, seconds, flash_steps, launches
 
@@ -769,21 +849,21 @@ def grid_side(size: int) -> int:
 
 
 def drive(name, cfg, device, video, mask, kernels, card: str, phase: int,
-          size: int = SIZE):
-    """One main path (phase `phase`) and its card-vs-CPU check (the next
-    phase). Returns the launches by kernel name."""
+          size: int = SIZE, preds=None, cpu_check: bool = True):
+    """One main path (phase `phase`) and, with cpu_check, its card-vs-CPU
+    check (the next phase). Returns (launches by kernel name, median and
+    p90 ms/frame); the masks go to `preds` (run_main_path)."""
     torch.cuda.reset_peak_memory_stats()
     model = seeded_model(cfg, device)
     eng, state, shadow, seconds, flash_steps, launches = run_main_path(
-        model, cfg, video, mask, STEPS, kernels, size)
+        model, cfg, video, mask, STEPS, kernels, size, preds)
     grid = tuple(state.shortcuts[-1].shape[-2:])
     if grid != (grid_side(size),) * 2:
         raise AssertionError(f"{name}: grid {grid} at {size}x{size}")
     peak = torch.cuda.max_memory_allocated() / 2**20
-    layers = cfg.MODEL_LSTT_NUM
-    want = {"local_window_attn": (STEPS + 1) * layers,
-            "local_window_attn_wide": 0,
-            "flash_attn_fwd": sum(flash_steps) * layers, "flash_attn_bwd": 0}
+    bf16 = model.compute_dtype == torch.bfloat16
+    want = expected_launches(kernels, STEPS + 1, sum(flash_steps),
+                             cfg.MODEL_LSTT_NUM, bf16)
     print(f"phase {phase}: {name} kernel launches in the main path: "
           f"{launches} (expected from the LT schedule: {want})", flush=True)
     if launches != want:
@@ -792,7 +872,8 @@ def drive(name, cfg, device, video, mask, kernels, card: str, phase: int,
     flags = np.asarray(flash_steps[WARMUP:])
     frame_ms = float(np.median(timed))
     print(f"phase {phase}: {name} {size}x{size} (grid {grid[0]}x{grid[1]}), "
-          f"{OBJECTS} objects, fp32, outputs checked at every step (shape, "
+          f"{OBJECTS} objects, {str(model.compute_dtype)[6:]}, outputs "
+          f"checked at every step (shape, "
           f"finite logits, labels in range); {len(timed)} steps after "
           f"{WARMUP} warm-up: median "
           f"{frame_ms:.3f} ms/frame ({1e3 / frame_ms:.2f} FPS), p90 "
@@ -804,11 +885,13 @@ def drive(name, cfg, device, video, mask, kernels, card: str, phase: int,
                   f"{int(sel.sum())} steps, median "
                   f"{float(np.median(timed[sel])):.3f} ms/frame ({card})",
                   flush=True)
+    if not cpu_check:
+        return launches, (frame_ms, float(np.percentile(timed, 90)))
     if sum(flash_steps) and shadow.count < MIN_LT_FRAMES_CPU:
         raise AssertionError(f"{name}: {shadow.count} LT frames at the end")
     compare_with_cpu(cfg, model, eng, state, shadow, video, str(phase + 1),
                      size)
-    return launches
+    return launches, (frame_ms, float(np.percentile(timed, 90)))
 
 
 # the reference repository's multi-object FPS on one V100 (bench.py:18
@@ -840,17 +923,18 @@ def crop(video, mask, size: int):
             np.ascontiguousarray(mask[:, :size, :size]))
 
 
-def run_variants(kernels, device, card: str, video, mask):
-    """Phase 18: each of the 14 variants built from the seed, its state
-    dict loaded back strictly, then the reference frame and VARIANT_STEPS
-    steps at its serving size, 10 objects. Returns the launches by kernel
-    name, summed over the variants."""
+def run_variants(kernels, device, card: str, video, mask,
+                 dtype: str = "float32", phase: int = 18):
+    """Phase 18 (and, at bf16, 20): each of the 14 variants built from the
+    seed, its state dict loaded back strictly, then the reference frame and
+    VARIANT_STEPS steps at its serving size, 10 objects, in `dtype`.
+    Returns the launches by kernel name, summed over the variants."""
     from aot_tpu_torch.configs import build_config
     from aot_tpu_torch.utils.weights import load_reference_state_dict
 
     total = {name: 0 for name in kernels}
     for name, fps in V100_FPS.items():
-        cfg = build_config(stage="pre_ytb_dav", model=name)
+        cfg = build_config(stage="pre_ytb_dav", model=name, TEST_DTYPE=dtype)
         size = serving_size(cfg)
         torch.cuda.reset_peak_memory_stats()
         model = seeded_model(cfg, device)
@@ -862,18 +946,18 @@ def run_variants(kernels, device, card: str, video, mask):
         peak = torch.cuda.max_memory_allocated() / 2**20
         grid = tuple(state.shortcuts[-1].shape[-2:])
         layers = cfg.MODEL_LSTT_NUM
-        want = {"local_window_attn": (VARIANT_STEPS + 1) * layers,
-                "local_window_attn_wide": 0,
-                "flash_attn_fwd": sum(flash_steps) * layers,
-                "flash_attn_bwd": 0}
+        want = expected_launches(kernels, VARIANT_STEPS + 1,
+                                 sum(flash_steps), layers,
+                                 dtype == "bfloat16")
         if launches != want or grid != (grid_side(size),) * 2:
             raise AssertionError(f"{name}: launches {launches} != {want} "
                                  f"or grid {grid}")
         for k in kernels:
             total[k] += launches[k]
         frame_ms = float(np.median(seconds) * 1e3)
-        print(f"phase 18: {cfg.MODEL_NAME} ({cfg.MODEL_ENCODER}, "
-              f"{layers} blocks) {size}x{size}, grid {grid[0]}x{grid[1]}, "
+        print(f"phase {phase}: {cfg.MODEL_NAME} ({cfg.MODEL_ENCODER}, "
+              f"{layers} blocks, {dtype}) {size}x{size}, grid "
+              f"{grid[0]}x{grid[1]}, "
               f"outputs checked; launches {launches}; median "
               f"{frame_ms:.3f} ms/frame ({1e3 / frame_ms:.1f} FPS) over "
               f"{VARIANT_STEPS} steps; peak memory {peak:.0f} MiB ({card}); "
@@ -1077,9 +1161,9 @@ def run_training(kernels, device, card: str):
           f"{TRAIN_BATCH * TRAIN_T * 1e3 / float(np.median(step_ms)):.1f} "
           f"frames/s; peak memory {peak:.2f} GiB ({card})", flush=True)
     layers = cfg.MODEL_LSTT_NUM
-    per_step = {"flash_attn_fwd": (2 * TRAIN_T + 2 * (TRAIN_T - 1)) * layers,
-                "flash_attn_bwd": 2 * TRAIN_T * layers,
-                "local_window_attn": 0, "local_window_attn_wide": 0}
+    per_step = dict({name: 0 for name in kernels},
+                    flash_attn_fwd=(2 * TRAIN_T + 2 * (TRAIN_T - 1)) * layers,
+                    flash_attn_bwd=2 * TRAIN_T * layers)
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     print(f"phase 10: kernel launches in the training path: {launches}, "
           f"per step {({k: v / TRAIN_STEPS for k, v in launches.items()})} "
@@ -1289,10 +1373,8 @@ def run_full_res_eval(kernels, device, card: str):
         flash_reads += use_flash(live, live, eng.engine.top_k,
                                  eng.engine.max_mem_len_ratio)
         shadow.update(t)
-    layers = cfg.MODEL_LSTT_NUM
-    want = {"local_window_attn": 0,
-            "local_window_attn_wide": EVAL_FRAMES * layers,
-            "flash_attn_fwd": flash_reads * layers, "flash_attn_bwd": 0}
+    want = expected_launches(kernels, EVAL_FRAMES, flash_reads,
+                             cfg.MODEL_LSTT_NUM, wide=True)
     print(f"phase 12: kernel launches in the evaluation: {launches} "
           f"(expected: {want}; LT frames at the end {shadow.count}, "
           f"{shadow.count * hw} live keys)", flush=True)
@@ -1423,23 +1505,25 @@ def profile_full_res_eval(card: str, autotune: bool) -> int:
     return 0
 
 
-def print_profile(prof, frames: int, label: str) -> float:
-    """A profiled window's kernel time and launches a frame, and the
-    kernels that take the most time. Returns the kernel ms a frame."""
+def print_profile(prof, frames: int, label: str, unit: str = "frame"
+                  ) -> float:
+    """A profiled window's kernel time and launches a frame (or `unit`),
+    and the kernels that take the most time. Returns the kernel ms a
+    frame."""
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA"]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
     launches = sum(e.count for e in kernels) / frames
-    print(f"profile: a frame {label}: {total:.3f} ms of kernels, "
+    print(f"profile: a {unit} {label}: {total:.3f} ms of kernels, "
           f"{launches:.0f} kernel launches", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"profile: {e.self_device_time_total / 1e3 / frames:8.3f} "
-              f"ms/frame {e.count / frames:8.1f} launches/frame  "
+              f"ms/{unit} {e.count / frames:8.1f} launches/{unit}  "
               f"{e.key[:100]}", flush=True)
     return total
 
 
-def profile_serving(card: str, model_name: str) -> int:
+def profile_serving(card: str, model_name: str, batch: int = 1) -> int:
     """--profile-serve MODEL: where a serving frame's time goes. Runs the
     model's main path as phases 6, 14 and 16 do (its serving size, 10
     objects, the evaluator's grow loop), before and after the flash switch
@@ -1447,7 +1531,8 @@ def profile_serving(card: str, model_name: str) -> int:
     under torch.profiler (which slows the host): the unprofiled ms a
     frame, kernel ms and launches a frame, the device's busy share (kernel
     time over the unprofiled frame) and the kernels that take the most
-    time."""
+    time. batch > 1: N seeded clips a step through step_videos (phase 21),
+    the numbers a step of N frames."""
     from torch.profiler import ProfilerActivity, profile
 
     from aot_tpu_torch.configs import build_config
@@ -1456,13 +1541,19 @@ def profile_serving(card: str, model_name: str) -> int:
     cfg = build_config(stage="pre_ytb_dav", model=model_name)
     size = serving_size(cfg)
     device = torch.device("cuda", 0)
-    video, mask = crop(*synthetic_video(SEED, STEPS + 1, SIZE, OBJECTS),
-                       size)
+    clips = [crop(*synthetic_video(SEED + (10 + i if batch > 1 else 0),
+                                   STEPS + 1, SIZE, OBJECTS), size)
+             for i in range(batch)]
     eng = build_infer_engine(seeded_model(cfg, device), cfg)
-    frames = torch.from_numpy(video).to(device)
+    frames = torch.from_numpy(np.concatenate([c[0] for c in clips], 1)).to(
+        device)                                   # (T, N, H, W, 3)
+    masks = torch.from_numpy(np.concatenate([c[1] for c in clips])).to(device)
     shadow = eng.make_shadow()
-    state = eng.add_reference_frame(frames[0],
-                                    torch.from_numpy(mask).to(device), OBJECTS)
+    if batch > 1:
+        state = eng.add_reference_frames_videos(frames[0], masks,
+                                                [OBJECTS] * batch)
+    else:
+        state = eng.add_reference_frame(frames[0], masks, OBJECTS)
     shadow.add_ref(0)
     t = 0
 
@@ -1473,8 +1564,14 @@ def profile_serving(card: str, model_name: str) -> int:
         for _ in range(n):
             t += 1
             t0 = time.perf_counter()
-            state, _, _ = grow_then_step(eng, shadow, state, frames[t], t,
-                                         (size, size))
+            if batch > 1:
+                if shadow.will_write(t):
+                    state = eng.ensure_lt_capacity(state, shadow.count + 1)
+                state, _, _ = eng.step_videos(state, frames[t], (size, size))
+                shadow.update(t)
+            else:
+                state, _, _ = grow_then_step(eng, shadow, state, frames[t], t,
+                                             (size, size))
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         return float(np.median(seconds) * 1e3)
@@ -1487,15 +1584,540 @@ def profile_serving(card: str, model_name: str) -> int:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             profiled = window(PROFILE_STEPS)
-        print(f"profile: {cfg.MODEL_NAME} {size}x{size} {label} ({shadow.count}"
-              f" LT frames): median {host:.3f} ms/frame over steps "
+        print(f"profile: {cfg.MODEL_NAME} {size}x{size}, {batch} video(s) a "
+              f"step, {label} ({shadow.count}"
+              f" LT frames): median {host:.3f} ms a step over steps "
               f"{t - 2 * PROFILE_STEPS + 1}-{t - PROFILE_STEPS}, "
               f"{profiled:.3f} under the profiler over the next "
               f"{PROFILE_STEPS} ({card})", flush=True)
-        kernel = print_profile(prof, PROFILE_STEPS, label)
+        unit = "frame" if batch == 1 else f"step of {batch} frames"
+        kernel = print_profile(prof, PROFILE_STEPS, label, unit)
         print(f"profile: {label}: the card busy {kernel / host:.0%} of the "
-              f"unprofiled median frame", flush=True)
+              f"unprofiled median {unit}", flush=True)
     return 0
+
+
+# --- phases 19-22: bf16, batched and chunked serving ----------------------
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def bf16_local_case(rng, b, hgt, wid, h, d, dv, rv, device):
+    """Local inputs with q, k, v in bf16 (rel_bias, rel_v fp32) and their
+    fp32 originals."""
+    f32 = local_inputs(rng, b, hgt, wid, h, d, dv, rv, 7, device)
+    return [a.to(torch.bfloat16) if i < 3 else a
+            for i, a in enumerate(f32)], f32
+
+
+def check_bf16_kernels(lwa, fa, device, card: str):
+    """Phase 19: the bf16 instantiations against their bf16 plain versions
+    on the card (gate BF16_TOL of the largest entry), timed beside the bf16
+    plain version, bf16 F.scaled_dot_product_attention (its backend named)
+    and the bound at the bf16 rate; and the fp32 kernels at B = 4 at the
+    same shapes. Returns ({bf16 kernel: worst error}, {bf16 kernel: (ms,
+    plain ms, library ms or None, (bound ms, by))} at the JSON line's
+    shapes)."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(SEED + 3)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    worst = {"local_window_attn_bf16": 0.0, "local_window_attn_wide_bf16": 0.0,
+             "flash_attn_fwd_bf16": 0.0}
+    times = {}
+    for label, b, hgt, wid, h, d, dv, rv in (
+            ("AOT head 30x30", 1, 30, 30, 8, 32, 32, True),
+            ("AOT head 30x30", 4, 30, 30, 8, 32, 32, True),
+            ("DeAOT head 30x30", 1, 30, 30, 1, 128, 1024, False),
+            ("DeAOT head 30x30", 4, 30, 30, 1, 128, 1024, False),
+            ("AOT head 64x113", 1, 64, 113, 8, 32, 32, True),
+            ("DeAOT head 64x113", 1, 64, 113, 1, 128, 1024, False)):
+        args, f32 = bf16_local_case(rng, b, hgt, wid, h, d, dv, rv, device)
+        kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=7, d_att=d)
+        wide = hgt * wid > 2500
+        kname = "local_window_attn_wide_bf16" if wide else \
+            "local_window_attn_bf16"
+        kernel = (lwa.local_window_attention_wide_cuda if wide
+                  else lwa.local_window_attention_cuda)
+        want = lwa.local_window_attention_plain(*args, **kw)
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        if got.dtype != torch.bfloat16 or not err <= BF16_TOL:
+            raise AssertionError(f"phase 19 local {label} B={b}: {got.dtype}"
+                                 f", error {err} > {BF16_TOL}")
+        worst[kname] = max(worst[kname], err)
+        fns = {"plain": lambda: lwa.local_window_attention_plain(*args, **kw),
+               "kernel": lambda: kernel(*args, **kw)}
+        if not rv:
+            q, k, v, rel_bias, _ = args
+            split = lambda x, c: x.reshape(b, -1, h, c).transpose(1, 2)
+            qs, ks, vs = (split(q, d).contiguous(), split(k, d).contiguous(),
+                          split(v, dv).contiguous())
+            bias = dense_window_bias(rel_bias, hgt, wid, 7).to(torch.bfloat16)
+            fns["library"] = lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=bias)
+        if b == 4:   # the fp32 kernel at the same shape
+            fns["fp32 kernel"] = lambda: kernel(*f32, **kw)
+        t = time_fns(fns, *((20, 3) if wide or b > 1 else ()))
+        b_ms, b_by = local_bound(b, hgt, wid, h, d, dv, rv, bf16=True)
+        lib = ""
+        if "library" in fns:
+            lib = (f", bf16 F.scaled_dot_product_attention with the dense "
+                   f"window bias ({sdpa_backend(qs, ks, vs, bias)}) "
+                   f"{t['library']:.4f} ms")
+            del bias
+        fp32 = ""
+        if "fp32 kernel" in fns:
+            e32 = (kernel(*f32, **kw) - lwa.local_window_attention_plain(
+                *f32, **kw)).abs().max().item()
+            if not e32 <= KERNEL_TOL:
+                raise AssertionError(f"phase 19 fp32 local {label} B=4: {e32}")
+            fp32 = (f"; the fp32 kernel {t['fp32 kernel']:.4f} ms (max_abs_err"
+                    f" {e32:.2e}, fp32 bound "
+                    f"{local_bound(b, hgt, wid, h, d, dv, rv)[0]:.4f} ms)")
+        plan = lwa.launch_plan(b, h, hgt, wid, d, dv, 7, sms)
+        print(f"phase 19: {kname} {label} B={b} h={h} d={d} dv={dv} rel_v={rv}"
+              f" (passes {plan.passes}, rows {plan.rows}): error {err:.3e} of "
+              f"the largest entry (gate {BF16_TOL}); kernel {t['kernel']:.4f} "
+              f"ms, bf16 plain {t['plain']:.4f} ms{lib}; bound {b_ms:.4f} ms "
+              f"({b_by}){fp32} ({card})", flush=True)
+        if b == 1 and h == 8:     # the JSON line's shapes: AOTT's ST reads
+            times[kname] = (t["kernel"], t["plain"], t.get("library"),
+                            (b_ms, b_by))
+    for label, b, lq, lk, h, d, dv, valid in (
+            ("AOTT ring live 900", 1, 900, 7200, 8, 32, 32, [900]),
+            ("AOTT ring live 7200", 1, 900, 7200, 8, 32, 32, [7200]),
+            ("AOTT ring", 4, 900, 7200, 8, 32, 32, [900, 2700, 5400, 7200]),
+            ("DeAOTL LT", 1, 900, 19800, 1, 128, 1024, [19800]),
+            ("DeAOTL LT", 4, 900, 19800, 1, 128, 1024,
+             [19800, 14400, 9000, 4500])):
+        q32, k32, v32, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid,
+                                         device)
+        q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+        out, lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
+        want, want_lse = fa.flash_attention_plain(q, k, v, vl, h, d)
+        torch.cuda.synchronize()
+        err = rel_err(out, want)
+        err_lse = (lse - want_lse).abs().max().item()
+        if out.dtype != torch.bfloat16 or not (err <= BF16_TOL and
+                                               err_lse <= BF16_TOL):
+            raise AssertionError(f"phase 19 flash {label} B={b}: {out.dtype}, "
+                                 f"errors {err}, {err_lse}")
+        worst["flash_attn_fwd_bf16"] = max(worst["flash_attn_fwd_bf16"], err)
+        del want, want_lse
+        qs, ks, vs, mask = sdpa_args(q, k, v, vl, h, d)
+        fns = {"plain": lambda: fa.flash_attention_plain(q, k, v, vl, h, d),
+               "kernel": lambda: fa.flash_attention_cuda(q, k, v, vl, h, d),
+               "library": lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, attn_mask=mask)}
+        if b == 4:
+            fns["fp32 kernel"] = lambda: fa.flash_attention_cuda(
+                q32, k32, v32, vl, h, d)
+        t = time_fns(fns, *((20, 3) if dv > 128 or b > 1 else ()))
+        b_ms, b_by = flash_fwd_bound_live(lq, vl.tolist(), h, d, dv, True)
+        fp32 = ""
+        if b == 4:
+            e32 = max(a.sub(w).abs().max().item() for a, w in zip(
+                fa.flash_attention_cuda(q32, k32, v32, vl, h, d),
+                fa.flash_attention_plain(q32, k32, v32, vl, h, d)))
+            if not e32 <= KERNEL_TOL:
+                raise AssertionError(f"phase 19 fp32 flash {label} B=4: {e32}")
+            fp32 = (f"; the fp32 kernel {t['fp32 kernel']:.4f} ms (max_abs_err"
+                    f" {e32:.2e}, fp32 bound "
+                    f"{flash_fwd_bound_live(lq, vl.tolist(), h, d, dv)[0]:.4f}"
+                    f" ms)")
+        print(f"phase 19: flash_attn_fwd_bf16 {label} B={b} Lq={lq} Lk={lk} "
+              f"h={h} d={d} dv={dv} live {vl.tolist()} (plan "
+              f"{fwd_plan(fa, b, lq, lk, h, dv, device)}): error {err:.3e} of "
+              f"the largest entry, lse {err_lse:.1e} (gate {BF16_TOL}); kernel "
+              f"{t['kernel']:.4f} ms, bf16 plain {t['plain']:.4f} ms, bf16 "
+              f"F.scaled_dot_product_attention with a boolean live-key mask "
+              f"({sdpa_backend(qs, ks, vs, mask)}) {t['library']:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}){fp32} ({card})", flush=True)
+        if label == "DeAOTL LT" and b == 1:
+            times["flash_attn_fwd_bf16"] = (t["kernel"], t["plain"],
+                                            t["library"], (b_ms, b_by))
+        del q, k, v, q32, k32, v32, qs, ks, vs
+    return worst, times
+
+
+def mask_agreement(got, want):
+    """Per-frame share of equal mask pixels of two lists of masks."""
+    return np.asarray([(a == b).float().mean().item()
+                       for a, b in zip(got, want)])
+
+
+def run_bf16_serving(kernels, device, card: str, video, mask, fp32):
+    """Phase 20: AOTT and DeAOTL at bf16 as phases 4 and 6 (the same clip,
+    seed and loop), against their fp32 runs of this call (`fp32`: name ->
+    (cfg, masks, (median, p90) ms)): ms/frame beside fp32, mask agreement
+    with fp32 (mean >= 99.5%, worst frame >= 99.0%), launches from the bf16
+    rule (flash from FLASH_MIN_KEYS_BF16 live keys: DeAOTL from step 21;
+    AOTT, whose LT gap of 9999 keeps one 900-key frame live, never).
+    Returns the launches by kernel name."""
+    from aot_tpu_torch.configs import build_config
+
+    total = {name: 0 for name in kernels}
+    for name, (cfg, want, ms32) in fp32.items():
+        cfg = build_config(stage="pre_ytb_dav", model=cfg.MODEL_NAME.lower(),
+                           TEST_DTYPE="bfloat16",
+                           TEST_LONG_TERM_MEM_CAP=cfg.TEST_LONG_TERM_MEM_CAP)
+        preds = []
+        launches, ms16 = drive(f"{name} bf16", cfg, device, video, mask,
+                               kernels, card, 20, preds=preds,
+                               cpu_check=False)
+        agree = mask_agreement(preds, want)
+        print(f"phase 20: {name} bf16 vs fp32 (this call): median "
+              f"{ms16[0]:.3f} vs {ms32[0]:.3f} ms/frame, p90 {ms16[1]:.3f} vs "
+              f"{ms32[1]:.3f}; masks agree on {agree.mean():.6f} of the "
+              f"pixels (worst frame {agree.min():.6f}, gates 0.995 / 0.990) "
+              f"({card})", flush=True)
+        if not (agree.mean() >= 0.995 and agree.min() >= 0.990):
+            raise AssertionError(f"{name} bf16 masks vs fp32: mean "
+                                 f"{agree.mean()}, worst {agree.min()}")
+        for k in kernels:
+            total[k] += launches[k]
+    return total
+
+
+def run_full_res_eval_bf16(kernels, device, card: str):
+    """Phase 20: phase 12's clip evaluated with --amp: the wide route's bf16
+    instantiation at 64x113, and the LT read of its one 7,232-key frame on
+    the flash kernel at every step (the bf16 rule: from 4,096 live keys).
+    Returns the launches by kernel name."""
+    from aot_tpu_torch.eval import __main__ as eval_cli
+    from aot_tpu_torch.ops.attention import use_flash
+
+    _, argv = full_res_clip("chip_smoke_eval_amp", device, "phase 20")
+    reset_counts(kernels)
+    ev, summary = eval_cli.run(argv + ["--amp"])
+    launches = read_counts(kernels)
+    stats = summary["per_sequence"][0]
+    (in_h, in_w), = stats["input_sizes"]
+    grid = ((in_h - 1) // 16 + 1, (in_w - 1) // 16 + 1)
+    eng = ev.engine
+    shadow = eng.make_shadow()
+    shadow.add_ref(0)
+    flash_reads = 0
+    for t in range(1, EVAL_FRAMES):
+        live = shadow.count * grid[0] * grid[1]
+        flash_reads += use_flash(live, live, eng.engine.top_k,
+                                 eng.engine.max_mem_len_ratio, torch.bfloat16)
+        shadow.update(t)
+    want = expected_launches(kernels, EVAL_FRAMES, flash_reads,
+                             ev.cfg.MODEL_LSTT_NUM, bf16=True, wide=True)
+    ms = np.asarray(stats["frame_times"][EVAL_WARMUP:]) * 1e3
+    print(f"phase 20: AOTT DAVIS-2017 Full-Resolution evaluation with --amp "
+          f"(bf16), grid {grid[0]}x{grid[1]}: median "
+          f"{float(np.median(ms)):.3f} ms/frame, p90 "
+          f"{float(np.percentile(ms, 90)):.3f}; launches {launches} "
+          f"(expected {want}) ({card})", flush=True)
+    if grid != EVAL_GRID or launches != want:
+        raise AssertionError(f"--amp evaluation: grid {grid}, launches "
+                             f"{launches} != {want}")
+    return launches
+
+
+def row_state(state, i: int):
+    """A copy of row i of a batched EngineState (the ST rings keep their
+    slot axis first)."""
+    import dataclasses
+
+    row = lambda x, axis=0: x.narrow(axis, i, 1).clone()
+    return dataclasses.replace(
+        state,
+        lt=[{k: row(v) for k, v in layer.items()} for layer in state.lt],
+        lt_count=[state.lt_count[i]],
+        st=[{k: row(v, 1) for k, v in layer.items()} for layer in state.st],
+        curr=[{k: row(v) for k, v in layer.items()} for layer in state.curr],
+        embs=[row(e) for e in state.embs],
+        shortcuts=[row(s) for s in state.shortcuts],
+        obj_nums=row(state.obj_nums))
+
+
+def run_batched(kernels, device, card: str):
+    """Phase 21: N videos a step (VOSInferEngine.step_videos), AOTT at N =
+    1, 2, 4, 8 and DeAOTL at N = 1, 2, 4 through the flash switch (step
+    46), 465x465, 10 objects each, seeded clips: aggregate frames/s, ms a
+    step and peak memory for each N; launches from the LT schedule (one
+    local read and one flash read a block per step, whatever N). At the
+    largest N, at three steps (the first, the first past the flash switch
+    for DeAOTL, the last), each row stepped alone from a copy of its state
+    against the batched step: logits within BATCH_TOL, masks >= 99.9%.
+    Returns the launches by kernel name."""
+    from aot_tpu_torch.configs import build_config
+    from aot_tpu_torch.engine import build_infer_engine
+    from aot_tpu_torch.ops.attention import use_flash
+
+    total = {name: 0 for name in kernels}
+    hw = grid_side(SIZE) ** 2
+    for name, model_name, ns, steps in (("AOTT", "aott", (1, 2, 4, 8), 30),
+                                        ("DeAOTL", "deaotl", (1, 2, 4), 55)):
+        cfg = build_config(stage="pre_ytb_dav", model=model_name,
+                           TEST_LONG_TERM_MEM_CAP=8)
+        model = seeded_model(cfg, device)
+        eng = build_infer_engine(model, cfg)
+        clips = [synthetic_video(SEED + 10 + i, steps + 1, SIZE, OBJECTS)
+                 for i in range(max(ns))]
+        frames = torch.from_numpy(np.stack([c[0][:, 0] for c in clips],
+                                           1)).to(device)     # (T, N, ...)
+        masks = torch.from_numpy(np.concatenate([c[1] for c in clips])).to(
+            device)
+        for n in ns:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            state = eng.add_reference_frames_videos(frames[0, :n], masks[:n],
+                                                    [OBJECTS] * n)
+            shadow = eng.make_shadow()
+            shadow.add_ref(0)
+            seconds, flash_reads = [], 0
+            check = {1, steps} | ({47} if model_name == "deaotl" else set())
+            worst = [0.0, 1.0]          # logits error, mask agreement
+            for t in range(1, steps + 1):
+                live = shadow.count * hw
+                flash_reads += use_flash(live, live, -1, -1.0)
+                if shadow.will_write(t):
+                    state = eng.ensure_lt_capacity(state, shadow.count + 1)
+                rows = ([row_state(state, i) for i in range(n)]
+                        if n == max(ns) and t in check else None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, preds, logits = eng.step_videos(
+                    state, frames[t, :n], (SIZE, SIZE))
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                if rows is not None:
+                    counts = read_counts(kernels)
+                    for i, st in enumerate(rows):
+                        _, pred1, logit1 = eng.step_videos(
+                            st, frames[t, i:i + 1], (SIZE, SIZE))
+                        diff = (logits[i:i + 1] - logit1).abs().max().item()
+                        worst[0] = max(worst[0], diff)
+                        worst[1] = min(worst[1], (preds[i:i + 1] == pred1)
+                                       .float().mean().item())
+                    restore_counts(kernels, counts)
+                shadow.update(t)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            launches = read_counts(kernels)
+            want = expected_launches(kernels, steps + 1, flash_reads,
+                                     cfg.MODEL_LSTT_NUM)
+            if launches != want:
+                raise AssertionError(f"phase 21 {name} N={n}: launches "
+                                     f"{launches} != {want}")
+            for k in kernels:
+                total[k] += launches[k]
+            timed = np.asarray(seconds[WARMUP:]) * 1e3
+            step_ms = float(np.median(timed))
+            print(f"phase 21: {name} N={n} videos a step, {SIZE}x{SIZE}, "
+                  f"{OBJECTS} objects each, {steps} steps ({flash_reads} on "
+                  f"the flash kernel): median {step_ms:.3f} ms a step (p90 "
+                  f"{np.percentile(timed, 90):.3f}), {n * 1e3 / step_ms:.1f} "
+                  f"frames/s in all; peak memory {peak:.0f} MiB; launches "
+                  f"{launches} ({card})", flush=True)
+            if n == max(ns):
+                print(f"phase 21: {name} N={n}: each row stepped alone from "
+                      f"a copy of its state at steps {sorted(check)}: grid "
+                      f"logits max_abs_err {worst[0]:.3e} (gate {BATCH_TOL}; "
+                      f"{'bit-identical' if worst[0] == 0 else 'not bit-identical: cuDNN or cuBLAS took another algorithm or order at this batch'}"
+                      f"), masks agree on {worst[1]:.6f} (gate "
+                      f"{MASK_AGREE})", flush=True)
+                if not (worst[0] <= BATCH_TOL and worst[1] >= MASK_AGREE):
+                    raise AssertionError(f"phase 21 {name}: rows vs alone "
+                                         f"{worst}")
+        del model, eng, state, frames
+        torch.cuda.empty_cache()
+    return total
+
+
+CHUNK = 8
+
+
+def run_chunked(kernels, device, card: str, video, mask):
+    """Phase 22: AOTT and DeAOTL stepped K = CHUNK frames at a time
+    (VOSInferEngine.step_chunk, the masks read back once a chunk) against
+    per-frame stepping with a readback each frame, from the reference frame
+    of the same clip, 56 frames (7 chunks; DeAOTL's flash switch at step
+    46): a first chunked pass under torch.cuda.set_sync_debug_mode("error")
+    (any synchronisation inside a chunk raises), its masks bit-identical to
+    per-frame stepping, then a second chunked pass without the debug mode,
+    timed beside per-frame stepping. Returns the first pass's launches by
+    kernel name."""
+    from aot_tpu_torch.configs import build_config
+    from aot_tpu_torch.engine import build_infer_engine
+    from aot_tpu_torch.ops.attention import use_flash
+
+    frames_n = 7 * CHUNK
+    total = {name: 0 for name in kernels}
+    hw = grid_side(SIZE) ** 2
+    frames = torch.from_numpy(video[:frames_n + 1]).to(device)
+    ref = torch.from_numpy(mask).to(device)
+    for name, model_name in (("AOTT", "aott"), ("DeAOTL", "deaotl")):
+        cfg = build_config(stage="pre_ytb_dav", model=model_name,
+                           TEST_LONG_TERM_MEM_CAP=8)
+        eng = build_infer_engine(seeded_model(cfg, device), cfg)
+
+        def per_frame():
+            state = eng.add_reference_frame(frames[0], ref, OBJECTS)
+            shadow = eng.make_shadow()
+            shadow.add_ref(0)
+            masks, secs = [], []
+            for t in range(1, frames_n + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, pred, _ = grow_then_step(eng, shadow, state, frames[t],
+                                                t, (SIZE, SIZE))
+                masks.append(pred.to(torch.uint8).cpu())
+                secs.append(time.perf_counter() - t0)
+            return masks, float(np.median(secs[WARMUP:]) * 1e3)
+
+        def chunked(debug: bool):
+            state = eng.add_reference_frame(frames[0], ref, OBJECTS)
+            shadow = eng.make_shadow()
+            shadow.add_ref(0)
+            masks, secs, flash_reads = [], [], 0
+            for c0 in range(1, frames_n + 1, CHUNK):
+                sh = copy.copy(shadow)
+                for t in range(c0, c0 + CHUNK):
+                    live = sh.count * hw
+                    flash_reads += use_flash(live, live, -1, -1.0)
+                    sh.update(t)
+                state = eng.ensure_lt_capacity(state, sh.count)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if debug:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, preds = eng.step_chunk(
+                        state, frames[c0:c0 + CHUNK], (SIZE, SIZE),
+                        (SIZE, SIZE))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                masks += list(preds.cpu())
+                secs.append((time.perf_counter() - t0) / CHUNK)
+                for t in range(c0, c0 + CHUNK):
+                    shadow.update(t)
+            return masks, float(np.median(secs[1:]) * 1e3), flash_reads
+
+        want, frame_ms = per_frame()
+        reset_counts(kernels)
+        got, debug_ms, flash_reads = chunked(debug=True)
+        launches = read_counts(kernels)
+        expect = expected_launches(kernels, frames_n + 1, flash_reads,
+                                   cfg.MODEL_LSTT_NUM)
+        if launches != expect:
+            raise AssertionError(f"phase 22 {name}: launches {launches} != "
+                                 f"{expect}")
+        for k in kernels:
+            total[k] += launches[k]
+        same = all(torch.equal(a, b) for a, b in zip(want, got))
+        _, chunk_ms, _ = chunked(debug=False)
+        _, frame_ms2 = per_frame()
+        print(f"phase 22: {name} {SIZE}x{SIZE}, {frames_n} frames "
+              f"({flash_reads} flash reads): step_chunk K={CHUNK} under "
+              f"sync_debug_mode('error') (no synchronisation inside a chunk), "
+              f"masks {'bit-identical to' if same else 'DIFFERENT from'} "
+              f"per-frame stepping; median ms/frame (chunks after the first; "
+              f"per frame after {WARMUP}), in the order run: per frame with a "
+              f"readback each frame {frame_ms:.3f}, chunked under the debug "
+              f"mode {debug_ms:.3f}, chunked {chunk_ms:.3f}, per frame "
+              f"{frame_ms2:.3f}; launches {launches} ({card})", flush=True)
+        if not same:
+            raise AssertionError(f"phase 22 {name}: chunked masks differ")
+    return total
+
+
+def write_davis_clips(root: str, clips: int, frames: int, size, objects: int):
+    """A DAVIS-2017 480p folder of `clips` seeded clips of moving ellipses
+    (every frame annotated; the evaluator reads the first)."""
+    import cv2
+    from PIL import Image
+
+    from aot_tpu_torch.utils.image import vos_palette
+
+    hgt, wid = size
+    davis = os.path.join(root, "DAVIS")
+    names = [f"clip{i}" for i in range(clips)]
+    os.makedirs(os.path.join(davis, "ImageSets", "2017"), exist_ok=True)
+    with open(os.path.join(davis, "ImageSets", "2017", "val.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    for i, seq in enumerate(names):
+        video, lab = synthetic_video(SEED + 20 + i, frames, max(size),
+                                     objects)
+        img_dir = os.path.join(davis, "JPEGImages", "480p", seq)
+        ann_dir = os.path.join(davis, "Annotations", "480p", seq)
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(ann_dir, exist_ok=True)
+        for t in range(frames):
+            rgb = video[t, 0, :hgt, :wid]
+            cv2.imwrite(os.path.join(img_dir, f"{t:05d}.jpg"), rgb[..., ::-1],
+                        [cv2.IMWRITE_JPEG_QUALITY, 95])
+            if t == 0:
+                im = Image.fromarray(lab[0, :hgt, :wid].astype(np.uint8))
+                im = im.convert("P")
+                im.putpalette(vos_palette())
+                im.save(os.path.join(ann_dir, f"{t:05d}.png"))
+    return names
+
+
+def run_eval_modes(kernels, device, card: str):
+    """Phase 22: `python -m aot_tpu_torch.eval` on a written DAVIS-2017
+    480p folder of 5 clips of 10 frames (480x854, 5 objects): the scalar
+    run, then --video_batch 4 --frame_chunk 8 (4 clips batched, the 5th
+    chunked 8 + 1), its PNGs equal to the scalar run's, then the same with
+    --amp, its PNGs >= 99.5% equal. Returns the launches by kernel name."""
+    import shutil
+
+    from PIL import Image
+
+    from aot_tpu_torch.eval import __main__ as eval_cli
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_modes")
+    shutil.rmtree(root, ignore_errors=True)
+    names = write_davis_clips(root, 5, 10, (480, 854), 5)
+    base = ["--stage", "pre_ytb_dav", "--model", "aott", "--dataset",
+            "davis2017", "--ckpt_path", "test", "--device", str(device),
+            "--set", f"DIR_DATA={root}", "--set", f"DIR_ROOT={root}"]
+    total = {name: 0 for name in kernels}
+    results = {}
+    for label, extra in (("scalar", []),
+                         ("modes", ["--video_batch", "4", "--frame_chunk",
+                                    "8"]),
+                         ("amp", ["--video_batch", "4", "--frame_chunk", "8",
+                                  "--amp"])):
+        reset_counts(kernels)
+        ev, summary = eval_cli.run(base + extra + ["--exp_name", label])
+        launches = read_counts(kernels)
+        for k in kernels:
+            total[k] += launches[k]
+        pngs = {}
+        for seq in names:
+            d = os.path.join(ev.result_root, seq)
+            for f in sorted(os.listdir(d)):
+                pngs[f"{seq}/{f}"] = np.array(Image.open(os.path.join(d, f)))
+        results[label] = pngs
+        print(f"phase 22: python -m aot_tpu_torch.eval {' '.join(extra)}: "
+              f"{summary['sequences']} clips, {summary['total_frames']} "
+              f"frames, {summary['fps']:.1f} frames/s; launches {launches} "
+              f"({card})", flush=True)
+    want = results["scalar"]
+    for label in ("modes", "amp"):
+        got = results[label]
+        if got.keys() != want.keys() or len(want) != 5 * 9:   # no frame 0
+            raise AssertionError(f"phase 22 {label}: {len(got)} PNGs")
+        agree = min(float((got[f] == want[f]).mean()) for f in want)
+        print(f"phase 22: {label} PNGs vs the scalar run: worst frame "
+              f"{agree:.6f} of pixels equal (gate "
+              f"{1.0 if label == 'modes' else 0.995})", flush=True)
+        if agree < (1.0 if label == "modes" else 0.995):
+            raise AssertionError(f"phase 22 {label}: PNG agreement {agree}")
+    return total
 
 
 def main() -> int:
@@ -1511,6 +2133,9 @@ def main() -> int:
     parser.add_argument("--profile-serve", metavar="MODEL",
                         help="profile MODEL's serving path (e.g. "
                              "r50_deaotl) instead of running the phases")
+    parser.add_argument("--batch", type=int, default=1,
+                        help="with --profile-serve: N videos a step "
+                             "(step_videos)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this check runs on the "
@@ -1543,25 +2168,30 @@ def main() -> int:
     if args.profile_eval:
         return profile_full_res_eval(card, not args.no_autotune)
     if args.profile_serve:
-        return profile_serving(card, args.profile_serve)
+        return profile_serving(card, args.profile_serve, args.batch)
 
     # phase 1
     t0 = time.perf_counter()
     sos = _build.build(*sources)
-    for load in (lwa._lib, fa._lib, fab._lib):
-        load()
+    for dt in (torch.float32, torch.bfloat16):
+        lwa._entry(dt)
+        fa._entry(dt)
+    fab._lib()
     print(f"phase 1: built {', '.join(os.path.relpath(s) for s in sos)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in sources:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             print(f"  nvcc {name}: {line}", flush=True)
 
-    # phases 2, 3, 8, 9
+    # phases 2, 3, 8, 9, 19
     max_err = check_kernel_numerics(lwa, fa, device)
     times = time_kernels(lwa, fa, device, card)
     max_err["flash_attn_bwd"] = check_bwd_numerics(fa, fab, device)
     times["flash_attn_bwd"] = time_bwd(fa, fab, device, card)
-    print(f"phases 1-3, 8, 9 done at {time.perf_counter() - start:.1f} s",
+    bf16_err, bf16_times = check_bf16_kernels(lwa, fa, device, card)
+    max_err.update(bf16_err)
+    times.update(bf16_times)
+    print(f"phases 1-3, 8, 9, 19 done at {time.perf_counter() - start:.1f} s",
           flush=True)
 
     # phases 4-7
@@ -1570,9 +2200,12 @@ def main() -> int:
                                    TEST_LONG_TERM_MEM_CAP=8)),
              ("DeAOTL", build_config(stage="pre_ytb_dav", model="deaotl"))]
     total = {name: 0 for name in kernels}
+    fp32_runs = {}      # phase 20 compares its bf16 runs with these
     for i, (name, cfg) in enumerate(paths):
-        launches = drive(name, cfg, device, video, mask, kernels, card,
-                         4 + 2 * i)
+        preds = []
+        launches, ms = drive(name, cfg, device, video, mask, kernels, card,
+                             4 + 2 * i, preds=preds)
+        fp32_runs[name] = (cfg, preds, ms)
         for k in kernels:
             total[k] += launches[k]
         if name == "AOTT" and launches["flash_attn_fwd"] != 0:
@@ -1604,8 +2237,8 @@ def main() -> int:
                                        ("SwinB_DeAOTL", "swinb_deaotl"))):
         cfg = build_config(stage="pre_ytb_dav", model=model)
         size = serving_size(cfg)
-        launches = drive(name, cfg, device, *crop(video, mask, size),
-                         kernels, card, 14 + 2 * i, size)
+        launches, _ = drive(name, cfg, device, *crop(video, mask, size),
+                            kernels, card, 14 + 2 * i, size)
         if launches["flash_attn_fwd"] == 0:
             raise AssertionError(f"{name} never reached the flash kernel")
         for k in kernels:
@@ -1615,6 +2248,26 @@ def main() -> int:
     for k, n in run_variants(kernels, device, card, video, mask).items():
         total[k] += n
     print(f"phase 18 done at {time.perf_counter() - start:.1f} s", flush=True)
+
+    # phases 20-22: bf16, batched and chunked serving
+    for part in (run_bf16_serving(kernels, device, card, video, mask,
+                                  fp32_runs),
+                 run_full_res_eval_bf16(kernels, device, card),
+                 run_variants(kernels, device, card, video, mask, "bfloat16",
+                              20)):
+        for k, n in part.items():
+            total[k] += n
+    print(f"phase 20 done at {time.perf_counter() - start:.1f} s", flush=True)
+    for part in (run_batched(kernels, device, card),
+                 run_chunked(kernels, device, card, video, mask),
+                 run_eval_modes(kernels, device, card)):
+        for k, n in part.items():
+            total[k] += n
+    print(f"phases 21, 22 done at {time.perf_counter() - start:.1f} s",
+          flush=True)
+    unused = [name for name, n in total.items() if n == 0]
+    if unused:
+        raise AssertionError(f"kernels no main path launched: {unused}")
 
     for mod in sys.modules:
         if mod.split(".")[0] in ("jax", "flax", "aot_tpu"):

@@ -24,7 +24,7 @@ from aot_tpu.configs import build_config
 from aot_tpu.eval import metrics as jax_metrics
 from aot_tpu.eval.evaluator import Evaluator as JaxEvaluator
 from aot_tpu_torch.configs import build_config as port_build_config
-from aot_tpu_torch.eval import Evaluator, check_supported
+from aot_tpu_torch.eval import Evaluator
 from aot_tpu_torch.eval import __main__ as cli
 from aot_tpu_torch.eval import metrics
 from aot_tpu_torch.utils.image import vos_palette
@@ -236,16 +236,3 @@ def test_cli_grid_at_davis_full_resolution():
     assert (hgt, wid) == (1009, 1793)
     grid = ((hgt - 1) // 16 + 1, (wid - 1) // 16 + 1)
     assert grid == (64, 113) and grid[0] * grid[1] > DENSE_LOCAL_MAX_TOKENS
-
-
-@pytest.mark.parametrize("argv", [["--amp"], ["--frame_chunk", "4"],
-                                  ["--video_batch", "2"]])
-def test_unported_knobs_raise(argv, tmp_path):
-    args = cli.build_parser().parse_args(argv)
-    cfg = port_build_config(stage="pre_ytb_dav", model="aott",
-                            DIR_ROOT=str(tmp_path), **cli.build_overrides(args))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cli.main(argv + ["--device", "cpu", "--ckpt_path", "test",
-                         "--set", f"DIR_ROOT={tmp_path}"])
