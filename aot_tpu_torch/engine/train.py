@@ -15,7 +15,14 @@ saved the buffers the last frame read. With `remat`, each propagated
 frame's forward is recomputed in the backward (torch.utils.checkpoint,
 non-reentrant) instead of kept: the JAX package's `TRAIN_REMAT`. Dropout
 and stochastic depth draw from a generator made from (`seed`, frame) inside
-the recomputed function, so the recompute replays the same draws.
+the recomputed function, so the recompute replays the same draws, for AOT's
+LSTT and DeAOT's GPM stack alike.
+
+The forward computes in the model's compute dtype (TRAIN_DTYPE): the model
+casts the frames, the one-hot masks and the position embedding to it. The
+decoder returns fp32 logits, so the resize and the losses are fp32, where
+the JAX package leaves bf16 (aot_tpu/models/decoders.py:59,
+aot_tpu/engine/train.py:86-110).
 """
 
 from __future__ import annotations

@@ -13,11 +13,13 @@ The patch-wise identity bank is the reference's stride-16 conv over the
 one-hot mask; the JAX package's label-matmul form of it is a TPU
 lane-padding workaround and is not carried over.
 
-Compute dtype (`compute_dtype`, TEST_DTYPE: float32 or bfloat16 for
-serving): the parameters stay fp32 and the layers compute in their input's
-dtype (models/layers.py), so the model casts what enters it, where
-aot_tpu/models/aot.py:211,217,284 does: the image, the one-hot mask and the
-position embedding. The decoder returns fp32 logits.
+Compute dtype (`compute_dtype`: TEST_DTYPE for serving, TRAIN_DTYPE for
+training, float32 or bfloat16): the parameters stay fp32 and the layers
+compute in their input's dtype (models/layers.py), so the model casts what
+enters it, where aot_tpu/models/aot.py:211,217,284 does: the image, the
+one-hot mask and the position embedding. The decoder returns fp32 logits,
+and the losses are computed from them in fp32, as the JAX package's
+(aot_tpu/models/decoders.py:59, aot_tpu/ops/losses.py:83,111,170).
 """
 
 from __future__ import annotations
@@ -149,10 +151,9 @@ class DeAOT(AOT):
 
     def _make_lstt(self, lstt_num, emb_dim, self_heads, att_heads,
                    decoder_intermediate, **lstt_drop) -> nn.Module:
-        del lstt_drop   # DeAOT training is not ported; serving has none
         return DualBranchGPM(lstt_num, emb_dim, self_heads, att_heads,
                              intermediate_norm=decoder_intermediate,
-                             final_norm=True)
+                             final_norm=True, **lstt_drop)
 
     def _decoder_indim(self, lstt_num: int, decoder_intermediate: bool):
         return self.emb_dim * (lstt_num * 2 + 1 if decoder_intermediate
@@ -278,44 +279,36 @@ def build_vos_model(cfg, device=None,
     raises when there is no card (pass device='cpu' for the CPU).
 
     train=False: the serving model, in eval mode with gradients off,
-    computing in TEST_DTYPE (float32 or bfloat16).
-    train=True: the trainable AOT model (TRAIN_DTYPE float32, frozen BN),
-    in train mode with gradients on; the FrozenBN statistics and affine stay
-    buffers, as the JAX package stop_gradients them. Its dropout and
-    stochastic depth (TRAIN_LSTT_*) act on a forward given a generator."""
+    computing in TEST_DTYPE.
+    train=True: the trainable model (AOT or DeAOT, frozen BN), computing
+    in TRAIN_DTYPE, in train mode with gradients on; the FrozenBN
+    statistics and affine stay buffers, as the JAX package stop_gradients
+    them. Its dropout and stochastic depth (TRAIN_LSTT_*, the same keys for
+    both families, as aot_tpu/models/aot.py:336-353 passes them) act on a
+    forward given a generator. Both dtypes are float32 or bfloat16."""
     device = resolve_device(device)
     classes = {"aot": AOT, "deaot": DeAOT}
     if cfg.MODEL_VOS not in classes:
         raise NotImplementedError(
             f"MODEL_VOS={cfg.MODEL_VOS!r}: aot_tpu_torch serves "
             f"{sorted(classes)}")
-    dtypes = {"float32": torch.float32}
-    if not train:
-        dtypes["bfloat16"] = torch.bfloat16
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     dtype_key = "TRAIN_DTYPE" if train else "TEST_DTYPE"
     if str(cfg.get(dtype_key)) not in dtypes:
         raise NotImplementedError(
             f"{dtype_key}={cfg.get(dtype_key)!r}: aot_tpu_torch "
-            f"{'trains' if train else 'serves'} in {sorted(dtypes)} (bf16 "
-            "training waits for a bf16 flash backward, ROADMAP.md Queue 1, "
-            f"bf16 training); pass --fp32 or {dtype_key}='float32'")
-    if train and cfg.MODEL_VOS != "aot":
-        raise NotImplementedError(
-            "aot_tpu_torch trains AOT models only; DeAOT training is "
-            "ROADMAP.md Queue 1")
+            f"{'trains' if train else 'serves'} in {sorted(dtypes)}")
     if train and not cfg.MODEL_FREEZE_BN:
         raise NotImplementedError(
             "MODEL_FREEZE_BN=False (trainable BN) is not ported "
             "(ROADMAP.md, Queue 1)")
-    drop = {}
-    if cfg.MODEL_VOS == "aot":
-        drop = dict(id_dropout=cfg.TRAIN_LSTT_ID_DROPOUT,
-                    emb_dropout=cfg.TRAIN_LSTT_EMB_DROPOUT,
-                    droppath=cfg.TRAIN_LSTT_DROPPATH,
-                    lt_dropout=cfg.TRAIN_LSTT_LT_DROPOUT,
-                    st_dropout=cfg.TRAIN_LSTT_ST_DROPOUT,
-                    droppath_lst=cfg.TRAIN_LSTT_DROPPATH_LST,
-                    droppath_scaling=cfg.TRAIN_LSTT_DROPPATH_SCALING)
+    drop = dict(id_dropout=cfg.TRAIN_LSTT_ID_DROPOUT,
+                emb_dropout=cfg.TRAIN_LSTT_EMB_DROPOUT,
+                droppath=cfg.TRAIN_LSTT_DROPPATH,
+                lt_dropout=cfg.TRAIN_LSTT_LT_DROPOUT,
+                st_dropout=cfg.TRAIN_LSTT_ST_DROPOUT,
+                droppath_lst=cfg.TRAIN_LSTT_DROPPATH_LST,
+                droppath_scaling=cfg.TRAIN_LSTT_DROPPATH_SCALING)
     model = classes[cfg.MODEL_VOS](
         encoder_name=cfg.MODEL_ENCODER,
         encoder_dims=tuple(cfg.MODEL_ENCODER_DIM),

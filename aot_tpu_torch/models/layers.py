@@ -88,14 +88,17 @@ def drop_path(x: torch.Tensor, rate: float,
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            broadcast_dims: Tuple[int, ...] = ()) -> torch.Tensor:
     """Element dropout as flax's nn.Dropout: keep with probability 1 - rate,
-    scale the kept by 1 / (1 - rate). Identity when rate is 0 or no
-    generator."""
+    scale the kept by 1 / (1 - rate); one draw shared along each axis of
+    `broadcast_dims`. Identity when rate is 0 or no generator."""
     if generator is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator,
+    shape = tuple(1 if i in broadcast_dims else n
+                  for i, n in enumerate(x.shape))
+    u = torch.rand(shape, generator=generator,
                    device=generator.device).to(x.device)
     return torch.where(u < keep_prob, x / keep_prob, 0.0)
 
@@ -135,17 +138,23 @@ class GNActDWConv2d(nn.Module):
 
 
 class DWConv2d(nn.Module):
-    """5x5 depthwise conv on a (B, HW, C) sequence, no bias (reference:
-    basic.py:38-57; its channel dropout is an identity at eval). DeAOT's
-    gated propagations apply it on every step."""
+    """5x5 depthwise conv on a (B, HW, C) sequence, no bias, then channel
+    dropout: whole channels of a sample dropped at p = 0.1 (reference:
+    basic.py:38-57, Dropout2d; aot_tpu/models/layers.py:145-160,
+    nn.Dropout(broadcast_dims=(1,))), drawn from the generator of a
+    training forward and an identity without one. DeAOT's gated
+    propagations apply it on every step."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.conv = Conv2d(features, features, 5, padding=2,
                               groups=features, bias=False)
 
-    def forward(self, x: torch.Tensor, size_2d) -> torch.Tensor:
-        return seq_from_2d(self.conv(seq_to_2d(x, size_2d)))
+    def forward(self, x: torch.Tensor, size_2d,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = seq_from_2d(self.conv(seq_to_2d(x, size_2d)))
+        return dropout(y, self.dropout, generator, broadcast_dims=(1,))
 
 
 class ConvGN(nn.Module):
@@ -261,8 +270,8 @@ class GatedPropagation(nn.Module):
         return torch.cat([x1, x2], dim=-1)
 
     def forward(self, q, k, v, u, size_2d, *, valid_len=None,
-                top_k: int = -1,
-                max_mem_len_ratio: float = -1.0) -> torch.Tensor:
+                top_k: int = -1, max_mem_len_ratio: float = -1.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.use_linear:
             q = k = self.linear_QK(q)
             half = self.linear_V1.in_features
@@ -273,7 +282,7 @@ class GatedPropagation(nn.Module):
         out = att_ops.gated_global_attention(
             q, k, v, self.num_heads, self.d_att, valid_len=valid_len,
             top_k=top_k, max_mem_len_ratio=max_mem_len_ratio)
-        return self.projection(self.dw_conv(out * u, size_2d))
+        return self.projection(self.dw_conv(out * u, size_2d, generator))
 
 
 class LocalGatedPropagation(nn.Module):
@@ -298,7 +307,8 @@ class LocalGatedPropagation(nn.Module):
         self.dw_conv = DWConv2d(expand_d_vu)
         self.projection = Linear(expand_d_vu, d_vu)
 
-    def forward(self, q, k, v, u, size_2d) -> torch.Tensor:
+    def forward(self, q, k, v, u, size_2d,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.num_heads
         rel_bias = att_ops.relative_emb_from_q(
             q.float(), self.relative_emb_k.weight.view(h, self.win2, -1),
@@ -306,4 +316,4 @@ class LocalGatedPropagation(nn.Module):
         out = att_ops.gated_local_attention(
             q, k, v, rel_bias, num_heads=h, size_2d=size_2d,
             max_dis=self.max_dis, dilation=self.dilation, d_att=self.d_att)
-        return self.projection(self.dw_conv(out * u, size_2d))
+        return self.projection(self.dw_conv(out * u, size_2d, generator))

@@ -23,6 +23,15 @@ from aot_tpu_torch.ops import attention as att_ops
 Mem = Dict[str, torch.Tensor]
 
 
+def _droppath_rate(droppath: float, scaling: bool, idx: int,
+                   num_layers: int) -> float:
+    """Layer idx's stochastic-depth rate: `droppath`, or with
+    droppath_scaling a ramp from 0 at the first layer to it at the last."""
+    if not scaling:
+        return droppath
+    return 0.0 if num_layers == 1 else droppath * idx / (num_layers - 1)
+
+
 class LSTTBlockV1(nn.Module):
     """reference: transformer.py:258-372 (LongShortTermTransformerBlock)."""
 
@@ -113,15 +122,11 @@ class LongShortTermTransformer(nn.Module):
         self.intermediate_norm = intermediate_norm
         self.final_norm = final_norm
         self.emb_dropout = emb_dropout
-
-        def rate(idx):
-            if not droppath_scaling:
-                return droppath
-            return 0.0 if num_layers == 1 else droppath * idx / (num_layers - 1)
-
         self.layers = nn.ModuleList(
             LSTTBlockV1(d_model, self_heads, att_heads, dim_feedforward,
-                        droppath=rate(idx), lt_dropout=lt_dropout,
+                        droppath=_droppath_rate(droppath, droppath_scaling,
+                                                idx, num_layers),
+                        lt_dropout=lt_dropout,
                         st_dropout=st_dropout, droppath_lst=droppath_lst)
             for idx in range(num_layers))
         num_norms = (num_layers - 1) if intermediate_norm else 0
@@ -179,7 +184,9 @@ class GatedPropagationModule(nn.Module):
     attention output; later layers carry it in (`tgt_id`)."""
 
     def __init__(self, d_model: int, self_heads: int = 1, att_heads: int = 1,
-                 layer_idx: int = 0):
+                 layer_idx: int = 0, droppath: float = 0.0,
+                 lt_dropout: float = 0.0, st_dropout: float = 0.0,
+                 droppath_lst: bool = False):
         super().__init__()
         expand_d = 2 * d_model
         self.d_model = d_model
@@ -204,6 +211,9 @@ class GatedPropagationModule(nn.Module):
         self.self_attn = L.GatedPropagation(
             d_model * 2, d_model * 2, self_heads, d_att=self.d_att,
             use_linear=True)
+        self.droppath = L.DropPath(droppath)
+        self.droppath_lst = droppath_lst
+        self.lst_dropout = max(lt_dropout, st_dropout)
 
     def fuse_key_value_id(self, key, value, id_emb) -> Mem:
         """id_v = silu(linear_ID_V([value, id_emb] or id_emb))
@@ -217,7 +227,16 @@ class GatedPropagationModule(nn.Module):
     def forward(self, tgt, tgt_id, lt_mem: Optional[Mem],
                 st_mem: Optional[Mem], curr_id_emb: Optional[torch.Tensor],
                 size_2d: Tuple[int, int], *, lt_valid_len=None,
-                top_k: int = -1, max_mem_len_ratio: float = -1.0):
+                top_k: int = -1, max_mem_len_ratio: float = -1.0,
+                generator: Optional[torch.Generator] = None):
+        """The visual (tgt) and identity (tgt_id) streams through the LT and
+        ST gated propagations and the gated self-attention. With a
+        generator (training): the channel dropout of each propagation's
+        DWConv2d, stochastic depth (`droppath`) on every residual of both
+        streams, and on the propagations' sum either stochastic depth
+        (droppath_lst) or element dropout at max(lt_dropout, st_dropout),
+        on tgt and delta_id alike (aot_tpu/models/lstt.py:456-472)."""
+        g = generator
         d_model = self.d_model
         n_qk = self.d_att * self.att_heads
         _tgt = self.norm1(tgt)
@@ -251,20 +270,25 @@ class GatedPropagationModule(nn.Module):
         cat_tgt2 = self.long_term_attn(
             curr_q, global_k, torch.cat([global_v, global_id_v], dim=-1),
             cat_curr_u, size_2d, valid_len=lt_valid_len, top_k=top_k,
-            max_mem_len_ratio=max_mem_len_ratio)
+            max_mem_len_ratio=max_mem_len_ratio, generator=g)
         cat_tgt3 = self.short_term_attn(
             curr_q, local_k, torch.cat([local_v, local_id_v], dim=-1),
-            cat_curr_u, size_2d)
+            cat_curr_u, size_2d, g)
         cat_tgt = cat_tgt2 + cat_tgt3
-        tgt = tgt + cat_tgt[..., :d_model]
-        delta_id = cat_tgt[..., d_model:]
+        if self.droppath_lst:
+            tgt = tgt + self.droppath(cat_tgt[..., :d_model], g)
+            delta_id = self.droppath(cat_tgt[..., d_model:], g)
+        else:
+            tgt = tgt + L.dropout(cat_tgt[..., :d_model], self.lst_dropout, g)
+            delta_id = L.dropout(cat_tgt[..., d_model:], self.lst_dropout, g)
         tgt_id = delta_id if tgt_id is None else tgt_id + delta_id
 
         # gated self-attention over the concatenated dual branch
         qkvu = torch.cat([self.norm2(tgt), self.id_norm2(tgt_id)], dim=-1)
-        cat_tgt2 = self.self_attn(qkvu, qkvu, qkvu, qkvu, size_2d)
-        tgt = tgt + cat_tgt2[..., :d_model]
-        tgt_id = tgt_id + cat_tgt2[..., d_model:]
+        cat_tgt2 = self.self_attn(qkvu, qkvu, qkvu, qkvu, size_2d,
+                                  generator=g)
+        tgt = tgt + self.droppath(cat_tgt2[..., :d_model], g)
+        tgt_id = tgt_id + self.droppath(cat_tgt2[..., d_model:], g)
 
         # layer 0 has no identity input: its curr memory holds no id_v
         curr = {"k": curr_k, "v": curr_v}
@@ -282,13 +306,21 @@ class DualBranchGPM(nn.Module):
 
     def __init__(self, num_layers: int = 2, d_model: int = 256,
                  self_heads: int = 1, att_heads: int = 1,
-                 intermediate_norm: bool = True, final_norm: bool = True):
+                 intermediate_norm: bool = True, final_norm: bool = True,
+                 emb_dropout: float = 0.0, droppath: float = 0.0,
+                 lt_dropout: float = 0.0, st_dropout: float = 0.0,
+                 droppath_lst: bool = False, droppath_scaling: bool = False):
         super().__init__()
         self.intermediate_norm = intermediate_norm
         self.final_norm = final_norm
+        self.emb_dropout = emb_dropout
         self.layers = nn.ModuleList(
-            GatedPropagationModule(d_model, self_heads, att_heads,
-                                   layer_idx=idx)
+            GatedPropagationModule(
+                d_model, self_heads, att_heads, layer_idx=idx,
+                droppath=_droppath_rate(droppath, droppath_scaling, idx,
+                                        num_layers),
+                lt_dropout=lt_dropout, st_dropout=st_dropout,
+                droppath_lst=droppath_lst)
             for idx in range(num_layers))
         num_norms = (num_layers - 1) if intermediate_norm else 0
         if final_norm:
@@ -305,11 +337,7 @@ class DualBranchGPM(nn.Module):
                 max_mem_len_ratio: float = -1.0,
                 generator: Optional[torch.Generator] = None):
         del self_pos  # the reference GPM accepts but never uses it
-        if generator is not None:
-            raise NotImplementedError(
-                "DeAOT training (dropout and stochastic depth in the GPM "
-                "stack) is not ported yet (ROADMAP.md, Queue 1)")
-        output, output_id = tgt, None
+        output, output_id = L.dropout(tgt, self.emb_dropout, generator), None
         intermediates, memories = [], []
         for idx, layer in enumerate(self.layers):
             output, output_id, mems = layer(
@@ -317,7 +345,7 @@ class DualBranchGPM(nn.Module):
                 lt_mems[idx] if lt_mems is not None else None,
                 st_mems[idx] if st_mems is not None else None,
                 curr_id_emb, size_2d, lt_valid_len=lt_valid_len, top_k=top_k,
-                max_mem_len_ratio=max_mem_len_ratio)
+                max_mem_len_ratio=max_mem_len_ratio, generator=generator)
             intermediates.append(torch.cat([output, output_id], dim=-1))
             memories.append(mems)
 

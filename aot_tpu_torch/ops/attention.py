@@ -16,8 +16,9 @@ version on a CPU tensor; below that it is plain PyTorch on both, as the JAX
 package leaves it to XLA. Inside `attn_training_context` (the training
 step) every global attention takes the differentiable flash path
 (`flash_attention_train`: the forward kernel and the backward kernels on
-CUDA, both plain versions on the CPU) and local attention the plain window
-form, which autograd differentiates.
+CUDA, both plain versions on the CPU) and local attention the window form
+(`local_attention_window`, the JAX package's training formulation), which
+autograd differentiates.
 
 Layouts: sequences are (B, L, C).
 """
@@ -29,6 +30,7 @@ import math
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from aot_tpu_torch.ops.kernels import flash_attn as fa
 from aot_tpu_torch.ops.kernels import local_window_attn as lwa
@@ -219,16 +221,92 @@ def relative_emb_from_q(q: torch.Tensor, weight: torch.Tensor,
 def local_route(tokens: int, device_type: str, dilation: int,
                 training: bool) -> str:
     """Which implementation serves a local read of `tokens` query tokens:
-    'plain' (the window form: training on any device, and every CPU
-    tensor), 'flat' or 'wide' (the CUDA kernel's two wrappers, at dilation
-    1, split at DENSE_LOCAL_MAX_TOKENS as aot_tpu/ops/attention.py:376-383
-    splits the TPU kernels), or 'none' (a card tensor at another dilation:
-    no kernel serves it)."""
-    if training or device_type == "cpu":
+    'window' (training on any device: `local_attention_window`), 'plain'
+    (every other CPU tensor: the kernel's plain version), 'flat' or 'wide'
+    (the CUDA kernel's two wrappers, at dilation 1, split at
+    DENSE_LOCAL_MAX_TOKENS as aot_tpu/ops/attention.py:376-383 splits the
+    TPU kernels), or 'none' (a card tensor at another dilation: no kernel
+    serves it)."""
+    if training:
+        return "window"
+    if device_type == "cpu":
         return "plain"
     if dilation != 1:
         return "none"
     return "wide" if tokens > DENSE_LOCAL_MAX_TOKENS else "flat"
+
+
+def local_attention_window(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_bias: torch.Tensor,
+    rel_v: Optional[torch.Tensor],
+    *,
+    num_heads: int,
+    size_2d: Tuple[int, int],
+    max_dis: int = 7,
+    dilation: int = 1,
+    d_att: Optional[int] = None,
+) -> torch.Tensor:
+    """The training formulation of local attention (port of
+    aot_tpu/ops/attention.py:587 local_attention_window): per window row
+    offset dy, one (W x Wp) banded product per image row of the padded key
+    image, the band of 2*max_dis+1 columns cut out by the flat-view trick
+    (flat[x*(Wp+1) + dx] == full[x, x+dx]) and put back by its inverse for
+    P V, so no (HW x HW) tensor and no unfolded copy of v is made: at
+    DeAOT's dv = 1024 autograd keeps the padded images and the (B, h, H, W,
+    Wp) bands, not a (B, h, dv, win², HW) unfold. Casts as the JAX
+    package's: q / sqrt(d) in q's dtype, fp32 scores (the products of the
+    widened operands summed in fp32) and softmax, P in v's dtype, P V and
+    P rel_v (from the fp32 P) summed in fp32, the output in v's dtype.
+    Layouts as local_attention's."""
+    hgt, wid = size_2d
+    hw = hgt * wid
+    b = q.shape[0]
+    h = num_heads
+    d = d_att if d_att is not None else q.shape[-1] // h
+    dv = v.shape[-1] // h
+    win = 2 * max_dis + 1
+    pad = max_dis * dilation
+    wp = wid + 2 * pad
+    span = (win - 1) * dilation + 1
+
+    def to_img(x, dd):      # (B, HW, h*dd) -> (B, h, H, W, dd), fp32
+        return x.reshape(b, hgt, wid, h, dd).permute(0, 3, 1, 2, 4).float()
+
+    q_img = to_img(q / math.sqrt(d), d)
+    k_pad = F.pad(to_img(k, d), (0, 0, pad, pad, pad, pad))
+    v_pad = F.pad(to_img(v, dv), (0, 0, pad, pad, pad, pad))
+    lead = (b, h, hgt)
+
+    def band_extract(full):      # (..., W, Wp) -> (..., W, win)
+        flat = F.pad(full.reshape(lead + (wid * wp,)), (0, wid))
+        return flat.reshape(lead + (wid, wp + 1))[..., 0:span:dilation]
+
+    def band_embed(band):        # (..., W, win) -> (..., W, Wp)
+        grid = band.new_zeros(lead + (wid, wp + 1))
+        grid[..., 0:span:dilation] = band
+        return grid.reshape(lead + (wid * (wp + 1),))[..., :wid * wp].reshape(
+            lead + (wid, wp))
+
+    rows = [band_extract(q_img @ k_pad[:, :, dy * dilation:dy * dilation
+                                       + hgt].transpose(-1, -2))
+            for dy in range(win)]
+    scores = torch.stack(rows, dim=4).reshape(b, h, hw, win * win)
+    scores = scores + rel_bias.float()
+    valid = lwa._window_valid(hgt, wid, max_dis, dilation, q.device)
+    attn = torch.softmax(scores.masked_fill(~valid, NEG_INF), dim=-1)
+    attn_img = attn.to(v.dtype).float().reshape(b, h, hgt, wid, win, win)
+    out = None
+    for dy in range(win):
+        part = band_embed(attn_img[..., dy, :]) @ v_pad[
+            :, :, dy * dilation:dy * dilation + hgt]
+        out = part if out is None else out + part
+    out = out.reshape(b, h, hw, dv)
+    if rel_v is not None:
+        out = out + torch.einsum("bhqw,hcw->bhqc", attn, rel_v.float())
+    return out.permute(0, 2, 1, 3).reshape(b, hw, h * dv).to(v.dtype)
 
 
 def local_attention(
@@ -253,16 +331,19 @@ def local_attention(
 
     The route is `local_route`'s. In training (attn_training_context) every
     device takes the window form, differentiable by autograd, as the JAX
-    package leaves it to XLA there (aot_tpu/ops/attention.py:351-368): the
-    CUDA kernel has no backward. A CPU tensor takes the plain version; a
-    CUDA tensor at dilation 1 the kernel, through the flat route's wrapper
-    up to DENSE_LOCAL_MAX_TOKENS query tokens and the wide route's above.
-    Anything else raises.
+    package takes its window form there (aot_tpu/ops/attention.py:351-368):
+    the CUDA kernel has no backward. Otherwise a CPU tensor takes the
+    kernel's plain version; a CUDA tensor at dilation 1 the kernel, through
+    the flat route's wrapper up to DENSE_LOCAL_MAX_TOKENS query tokens and
+    the wide route's above. Anything else raises.
     """
     kw = dict(num_heads=num_heads, size_2d=tuple(size_2d), max_dis=max_dis,
               d_att=d_att)
     route = local_route(size_2d[0] * size_2d[1], q.device.type, dilation,
                         in_training())
+    if route == "window":
+        return local_attention_window(q, k, v, rel_bias, rel_v,
+                                      dilation=dilation, **kw)
     if route == "plain":
         return lwa.local_window_attention_plain(
             q, k, v, rel_bias, rel_v, dilation=dilation, **kw)

@@ -22,10 +22,11 @@ ops/attention.py `use_flash`.
 All three return (out, lse): out (B, Lq, h*dv) in v's dtype; lse (B*h,
 Lq), fp32, the log-sum-exp of the scaled scores over the live keys. A row
 with no live key gives out 0 and lse -1e30, as the TPU kernel does
-(:89-96). q, k and v are fp32, or bf16 for serving (the kernel's bf16
-instantiation): fp32 scores, softmax statistics and accumulation, P
-rounded to bf16 before P V (`_fwd_kernel` at bf16, :41-93). The backward
-and so `flash_attention_train` take fp32 only.
+(:89-96). q, k and v are fp32, or bf16 for bf16 serving and training (the
+kernel's bf16 instantiation): fp32 scores, softmax statistics and
+accumulation, P rounded to bf16 before P V (`_fwd_kernel` at bf16,
+:41-93). `flash_attention_train` takes both, its backward the matching
+instantiation of ops/kernels/flash_attn_bwd.py.
 valid_len: None (all Lk keys live), an int, or a (B,) int tensor; keys at or
 beyond it, or beyond Lk, are dead.
 """
@@ -313,12 +314,8 @@ def flash_attention_train(
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
     """Softmax attention over the live keys with a flash backward; returns
-    out (B, Lq, h*dv) fp32. valid_len None means all keys live. fp32 only:
-    no backward kernel is built for bf16 (ROADMAP.md, Queue 1, bf16
-    training), so bf16 inputs raise."""
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention_train takes float32 q, k, v; got "
-            f"{q.dtype}/{k.dtype}/{v.dtype} (the flash backward has no bf16 "
-            "kernel: ROADMAP.md, Queue 1, bf16 training)")
+    out (B, Lq, h*dv) in v's dtype. q, k and v are all fp32 or all bf16
+    (the dtype of the training step, TRAIN_DTYPE); a CUDA tensor runs the
+    forward kernel and the backward kernels of that dtype, a CPU tensor
+    their plain versions. valid_len None means all keys live."""
     return FlashAttention.apply(q, k, v, valid_len, num_heads, d_att)

@@ -221,7 +221,7 @@ def _launch(fn: str, q, k, v, rel_bias, rel_v, num_heads, size_2d, max_dis,
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{fn} is forward-only: an input requires grad, and its gradient "
-            "would be lost; training takes local_window_attention_plain "
+            "would be lost; training takes the window form "
             "(ops.attention.local_attention inside attn_training_context)")
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: q is on {q.device}")

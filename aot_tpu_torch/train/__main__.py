@@ -1,12 +1,14 @@
 """Training CLI of the port: `python -m aot_tpu_torch.train` (the arguments
-of tools/train.py that one fp32 device needs).
+of tools/train.py that one device needs).
 
-    python -m aot_tpu_torch.train --stage pre_ytb_dav --model aott --fp32 \\
+    python -m aot_tpu_torch.train --stage pre_ytb_dav --model aott \\
         --batch_size 16 --total_steps 100000 --datasets youtubevos davis2017
 
-Without --fp32 (or TRAIN_DTYPE='float32' through --set) the trainer refuses
-to start: bf16 is not ported. `--datasets test` trains on the synthetic
-fixture with no data on disk.
+It trains AOT and DeAOT models (`--model`, e.g. aott, deaott, r50_deaotl)
+in the config's TRAIN_DTYPE, bfloat16 by default as the JAX package trains;
+`--fp32` trains in float32. `--datasets test` trains on the synthetic
+fixture with no data on disk. `--gpu_num` above 1 raises: the port trains
+on one device.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--pretrained_path", type=str, default="")
     parser.add_argument("--datasets", nargs="+", default=[])
     parser.add_argument("--data_workers", type=int, default=-1)
-    parser.add_argument("--fp32", action="store_true")
+    parser.add_argument("--fp32", action="store_true",
+                        help="train in float32 (default: the config's "
+                             "TRAIN_DTYPE, bfloat16)")
     parser.add_argument("--log_step", type=int, default=-1)
     parser.add_argument("--save_step", type=int, default=-1)
     parser.add_argument("--seed", type=int, default=0)

@@ -4,7 +4,11 @@ aot_tpu/train/step.py:47-95), on one device.
 The whole step — the forward and the backward, whose per-frame recompute
 re-runs the forward — runs inside `attn_training_context`, so every global
 attention takes the differentiable flash path and local attention the
-window form (ops/attention.py).
+window form (ops/attention.py). The forward computes in the model's
+compute dtype (TRAIN_DTYPE: bf16 or fp32); the parameters are fp32 and cast
+at use (models/layers.py), so their gradients arrive in fp32, and the
+global norm, the clipping, Adam's moments, the update and the EMA are fp32,
+as the JAX package's (aot_tpu/train/step.py:81-93).
 """
 
 from __future__ import annotations
@@ -51,24 +55,29 @@ def create_train_state(cfg, model: nn.Module,
 
 def make_train_step(cfg, engine: TrainEngine, enable_id_shuffle: bool = True):
     """Returns train_step(state, frames, masks, obj_nums, generator,
-    use_prev_pred) -> stats, which updates `state` in place. frames
-    (T, B, H, W, 3), masks (T, B, H, W), obj_nums (B,) on the model's
-    device; `generator`, a CPU torch.Generator, draws the id shuffle and the
-    seed of the step's dropout."""
+    use_prev_pred, deterministic=False) -> stats, which updates `state` in
+    place. frames (T, B, H, W, 3), masks (T, B, H, W), obj_nums (B,) on the
+    model's device; `generator`, a CPU torch.Generator, draws the id
+    shuffle and the seed of the step's dropout. deterministic=True runs the
+    step with no dropout or stochastic depth (the JAX engine's
+    deterministic=True, as parity runs use it: DeAOT's DWConv2d drops
+    channels in every training forward)."""
     max_obj = cfg.MODEL_MAX_OBJ_NUM
     # (reference: trainer.py:296-298)
     enable_prev_frame = (cfg.TRAIN_ENABLE_PREV_FRAME
                          and "static" not in cfg.DATASETS)
 
     def train_step(state: TrainState, frames, masks, obj_nums,
-                   generator: torch.Generator,
-                   use_prev_pred: bool) -> Dict[str, torch.Tensor]:
+                   generator: torch.Generator, use_prev_pred: bool,
+                   deterministic: bool = False) -> Dict[str, torch.Tensor]:
         b = frames.shape[1]
         shuffle = None
         if enable_id_shuffle:
             shuffle = generate_permute_matrix(max_obj + 1, b, generator
                                               ).to(frames.device)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+        if deterministic:
+            seed = None
         state.model.zero_grad(set_to_none=True)
         with attn_training_context():
             loss, stats = engine.forward(

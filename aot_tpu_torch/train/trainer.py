@@ -4,11 +4,13 @@ aot_tpu/train/trainer.py:34-247; reference: networks/managers/trainer.py).
 Covers model, engine, optimizer and EMA construction, auto-resume and
 pretrained weights, the sequential-training curriculum (`use_prev_pred` from
 TRAIN_SEQ_TRAINING_START_RATIO on), logging, and the raw and EMA checkpoint
-streams. fp32 on one device only: bf16 (TRAIN_DTYPE) and data parallelism
-over several devices are later work (ROADMAP.md, Queue 1), and both raise.
-It runs on cuda:0 unless given another device, and raises when there is no
-card. The batches come from the port's copy of the JAX package's loader
-(aot_tpu_torch.data.loader.TrainLoader).
+streams. Trains both MODEL_VOS families (AOT and DeAOT) in the config's
+TRAIN_DTYPE (bfloat16 by default, or float32): the forward in that dtype,
+the parameters, their gradients, Adam's moments and the EMA in fp32. One
+device only: data parallelism over several is later work (ROADMAP.md,
+Queue 1) and raises. It runs on cuda:0 unless given another device, and
+raises when there is no card. The batches come from the port's copy of the
+JAX package's loader (aot_tpu_torch.data.loader.TrainLoader).
 """
 
 from __future__ import annotations
@@ -31,10 +33,6 @@ StepHook = Callable[[int, Dict[str, torch.Tensor]], None]
 
 class Trainer:
     def __init__(self, cfg, seed: int = 0, device=None):
-        if str(cfg.TRAIN_DTYPE) != "float32":
-            raise NotImplementedError(
-                f"TRAIN_DTYPE={cfg.TRAIN_DTYPE!r}: aot_tpu_torch trains in "
-                "float32 only (pass --fp32); bf16 is ROADMAP.md Queue 1")
         if int(cfg.MESH_DP_SIZE) > 1:
             raise NotImplementedError(
                 f"MESH_DP_SIZE={cfg.MESH_DP_SIZE}: aot_tpu_torch trains on "
@@ -48,8 +46,9 @@ class Trainer:
         self.state = create_train_state(cfg, model)
         self.train_step = make_train_step(cfg, self.engine)
         n = sum(p.numel() for p in model.parameters())
-        self.print_log(f"device: {self.device}, batch: "
-                       f"{cfg.TRAIN_BATCH_SIZE}, params: {n / 1e6:.2f}M")
+        self.print_log(f"{cfg.MODEL_NAME} on {self.device}, "
+                       f"{cfg.TRAIN_DTYPE}, batch: {cfg.TRAIN_BATCH_SIZE}, "
+                       f"params: {n / 1e6:.2f}M")
         self.start_step = 0
         self.process_pretrained_model()
 

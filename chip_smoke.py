@@ -7,15 +7,17 @@ PyTorch built for CUDA:
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-eval [--no-autotune]
     python3 chip_smoke.py --profile-serve MODEL [--batch N]
+    python3 chip_smoke.py --profile-train MODEL [--dtype D] [--batch N]
 
 The second form profiles phase 12's evaluation and runs nothing else
 (`profile_full_res_eval`); the third profiles a model's serving path, as
 phases 6, 14 and 16 run it (with --batch N: N videos a step, as phase 21),
-before and after the flash switch (`profile_serving`).
+before and after the flash switch (`profile_serving`); the fourth a
+training step, as phases 10, 25 and 26 run it (`profile_training`).
 
-Phases (2, 3, 8, 9 and 19, the kernel checks, run first, then 4 to 7,
-then 10 to 18, then 20 to 22); any failure raises and the exit code is
-non-zero:
+Phases (2, 3, 8, 9, 19, 23 and 24, the kernel checks, run first, then 4
+to 7, then 10 to 18, then 20 to 22, then 25 to 27); any failure raises and
+the exit code is non-zero:
   0. refuse to run without a card; print the card's name and power limit
      (nvidia-smi) and the torch/CUDA versions; TF32 off for matmuls and
      convolutions.
@@ -85,7 +87,7 @@ non-zero:
  10. the third main path, AOTT training: Trainer.sequential_training on a
      seeded clip source (TRAIN_BATCH clips of moving ellipses, 465x465,
      T=5, fixed: every step sees the same clips), stage pre_ytb_dav, fp32,
-     TF32 off, per-frame recompute, TRAIN_TOTAL_STEPS = 1000 (the length of
+     TF32 off, per-frame recompute, local reads on the window form, TRAIN_TOTAL_STEPS = 1000 (the length of
      the LR, aux-weight and hard-mining schedules: the steps run stay in
      the LR warm-up, with the loss's definition nearly fixed),
      TRAIN_WARMUP untimed steps then TRAIN_STEPS - TRAIN_WARMUP timed ones.
@@ -169,7 +171,38 @@ non-zero:
      then `python -m aot_tpu_torch.eval` on a written DAVIS-2017 480p folder
      of 5 clips: the scalar run, --video_batch 4 --frame_chunk 8 (PNGs
      equal to the scalar run's) and the same with --amp (>= 99.5%).
- 23. one JSON line with the kernels (the bf16 instantiations as entries of
+ 23. the bf16 backward (csrc/flash_attn_bwd.cu's bf16 instantiation)
+     against its bf16 plain version (dq, dk, dv each within 1e-2 of its
+     largest entry): AOTT's training shape (B=16, h=8, d=dv=32, Lq=Lk=900;
+     all keys live and a partial (B,) live length), DeAOT's training shapes
+     (h=1, d=128, dv=1024: the GPM self-attention at Lq=Lk=900, the LT read
+     at Lk=2,700, all live and partial), B=2 with one element's keys all
+     dead, DeAOT's head at 1080p (two query slabs: dV and dK summed over
+     them in fp32) and a row with no live key at AOT's heads; exact zeros
+     beyond each live length, a second run bit-identical.
+ 24. the bf16 backward timed as 9 at the training paths' shapes (AOTT's,
+     DeAOT's self-attention and LT read at B=16) beside its bf16 plain
+     version, the autograd backward of bf16 F.scaled_dot_product_attention
+     and the bf16 bound, with the fp32 kernel at the same shapes.
+ 25. the seventh main path, AOTT training at the configs' own dtype, bf16
+     (TRAIN_DTYPE): phase 10's configuration and report, the bf16 flash
+     forward and backward launched 18 and 10 times a step (asserted, the
+     fp32 kernels 0), the median of the last 10 steps, and a checkpoint
+     whose parameters, Adam moments and EMA are fp32.
+ 26. the eighth main path, R50_DeAOTL training at bf16, B=16, T=5, 465x465,
+     TRAIN_LONG_TERM_MEM_GAP=2 (the -L models' own: the last frame reads
+     three LT frames), 10 steps, reported as 25: the GPM self-attention
+     and LT read on the bf16 flash kernels (54 forward and 30 backward
+     launches a step, asserted), local reads on the window form.
+ 27. one train step on the card against the CPU, as 11: AOTT at bf16,
+     DeAOTT (LT gap 1) at fp32 and at bf16, DeAOT without dropout (the
+     card's and the CPU's generators draw other masks). fp32 to phase 11's
+     gates; bf16: loss and grad_norm within 2e-2 relative, each gradient
+     leaf within 5e-2 of its largest entry or twice the CPU's own bf16
+     rounding error there (against the CPU's fp32 step), whichever is
+     larger, the updated parameters within 1e-2 of each leaf's largest
+     entry.
+ 28. one JSON line with the kernels (the bf16 instantiations as entries of
      their own; launches summed over the main paths; each kernel's time,
      plain time, bound and library time at its main shape), the card line,
      and last the result line {"ok": true, "device": {...}}; every kernel
@@ -206,6 +239,8 @@ TRAIN_T = 5         # DATA_SEQ_LEN
 TRAIN_OBJECTS = 5
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 15    # warm-up included
+DEAOT_TRAIN_BATCH = 16    # phase 26: R50_DeAOTL at AOTT's training batch
+DEAOT_TRAIN_STEPS = 10
 TRAIN_SCHEDULE = 1000  # TRAIN_TOTAL_STEPS: the LR, aux-weight and hard-mining
                        # schedules' length; the steps run stay in its warm-up
 CMP_SIZE, CMP_BATCH, CMP_T = 97, 2, 3   # phase 11
@@ -261,6 +296,10 @@ KERNELS = {
     "flash_attn_fwd_bf16": ("flash_attn", "BF16_LAUNCHES",
                             "aot_tpu/ops/pallas/flash_attn_vjp.py:51",
                             "flash_attn_fwd"),
+    # the bf16 instantiation of the backward (bf16 training)
+    "flash_attn_bwd_bf16": ("flash_attn_bwd", "BF16_LAUNCHES",
+                            "aot_tpu/ops/pallas/flash_attn_vjp.py:267",
+                            "flash_attn_bwd"),
 }
 
 
@@ -576,6 +615,18 @@ def flash_bwd_bound(b, lq, live, h, d, dv):
     nbytes = 4 * (b * lq * h * (2 * d + 2 * dv) + 2 * b * live * h * (d + dv)
                   + b * h * lq)
     return bound(flops, nbytes)
+
+
+def flash_bwd_bound_live(lq, live, h, d, dv, bf16=False):
+    """flash_bwd_bound over a batch whose elements have their own live key
+    counts `live`; bf16: q, k, v, out, dout and the gradients in bf16 (lse
+    fp32), at the bf16 rate."""
+    elem = 2 if bf16 else 4
+    flops = sum(2.0 * h * lq * n * (3 * d + 2 * dv) for n in live)
+    nbytes = sum(elem * (lq * h * (2 * d + 2 * dv) + 2 * n * h * (d + dv))
+                 + 4 * h * lq for n in live)
+    return bound(flops, nbytes,
+                 PEAK_BF16_TC_FLOPS if bf16 else PEAK_FP32_ACCURATE_TC_FLOPS)
 
 
 def sdpa_args(q, k, v, vl, h, d):
@@ -1066,6 +1117,132 @@ def time_bwd(fa, fab, device, card: str):
     return result
 
 
+# the bf16 backward's shapes on the training paths: AOTT's self-attention
+# and LT reads (B=16, h=8, d=dv=32, Lq=Lk=900), DeAOT's GPM
+# self-attention (h=1, d=128, dv=1024, Lq=Lk=900) and its LT read at
+# TRAIN_LONG_TERM_MEM_GAP=2 (Lk=2,700 at the last frame of a 5-frame clip)
+BF16_BWD_SHAPES = (("AOTT training", 16, 900, 900, 8, 32, 32),
+                   ("DeAOT GPM self-attention", 16, 900, 900, 1, 128, 1024),
+                   ("DeAOT LT read", 16, 900, 2700, 1, 128, 1024))
+
+
+def bf16_bwd_inputs(fa, rng, b, lq, lk, h, d, dv, valid, device):
+    """bf16 q, k, v, valid_len, the bf16 forward kernel's out and lse, and
+    a bf16 dout; and the fp32 originals of q, k, v and dout."""
+    q32, k32, v32, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid, device)
+    do32 = torch.tensor(rng.randn(b, lq, h * dv), dtype=torch.float32,
+                        device=device)
+    q, k, v, dout = (x.to(torch.bfloat16) for x in (q32, k32, v32, do32))
+    out, lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
+    return (q, k, v, vl, out, lse, dout), (q32, k32, v32, do32)
+
+
+def check_bf16_bwd(fa, fab, device):
+    """Phase 23: the bf16 backward kernels against their bf16 plain version
+    on the card: each gradient within BF16_TOL of its largest entry, exact
+    zeros for dead keys (and for every gradient of an element with no live
+    key), a second run bit-identical. Returns the worst error relative to
+    the largest entry."""
+    rng = np.random.RandomState(SEED + 4)
+    cases = [  # name, B, Lq, Lk, heads, d, dv, valid_len
+        ("aott_train", 16, 900, 900, 8, 32, 32, None),
+        ("aott_train_partial", 16, 900, 900, 8, 32, 32,
+         [900 - 37 * i for i in range(16)]),
+        ("deaot_self", 16, 900, 900, 1, 128, 1024, None),
+        ("deaot_lt2700", 16, 900, 2700, 1, 128, 1024, None),
+        ("deaot_lt2700_partial", 16, 900, 2700, 1, 128, 1024,
+         [2700 - 900 * (i % 3) - 7 * i for i in range(16)]),
+        ("deaot_b2_empty", 2, 900, 2700, 1, 128, 1024, [1800, 0]),
+        ("deaot_1080p_two_slabs", 1, 7232, 14464, 1, 128, 1024, None),
+        ("empty_row", 2, 130, 200, 2, 32, 32, [200, 0]),
+    ]
+    worst = 0.0
+    for name, b, lq, lk, h, d, dv, valid in cases:
+        args, _ = bf16_bwd_inputs(fa, rng, b, lq, lk, h, d, dv, valid,
+                                  device)
+        q, k, v, vl = args[:4]
+        slab = fab.scratch_plan(b, lq, lk, h, dv, d, torch.bfloat16)[0]
+        if name.endswith("_two_slabs") and -(-lq // slab) != 2:
+            raise AssertionError(f"{name}: slab {slab} of {lq} rows")
+        got = fab.flash_attention_bwd_cuda(*args, h, d)
+        again = fab.flash_attention_bwd_cuda(*args, h, d)
+        want = fab.flash_attention_bwd_plain(*args, h, d)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"phase 23 {name}: two runs differ")
+        rels = []
+        for g, w, x in zip(got, want, (q, k, v)):
+            if g.dtype != torch.bfloat16 or g.shape != x.shape:
+                raise AssertionError(f"phase 23 {name}: {g.dtype} {g.shape}")
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"phase 23 {name}: non-finite gradient")
+            rels.append(rel_err(g, w))
+        if isinstance(valid, list):
+            for i, n in enumerate(valid):   # dead keys: exact zeros
+                if bool(got[1][i, n:].any()) or bool(got[2][i, n:].any()):
+                    raise AssertionError(f"phase 23 {name}: element {i} has "
+                                         "non-zero dk/dv beyond its live keys")
+                if n == 0 and bool(got[0][i].any()):
+                    raise AssertionError(f"phase 23 {name}: element {i} has "
+                                         "no live key and non-zero dq")
+        print(f"phase 23: flash_attn_bwd_bf16 {name} B={b} Lq={lq} Lk={lk} "
+              f"h={h} d={d} dv={dv} (slab {slab}): error (dq, dk, dv) / "
+              f"max|grad| {rels[0]:.3e} {rels[1]:.3e} {rels[2]:.3e} "
+              f"(tolerance {BF16_TOL}); dead keys exact zeros; a second run "
+              "bit-identical", flush=True)
+        if not max(rels) <= BF16_TOL:
+            raise AssertionError(f"phase 23 {name}: {rels} > {BF16_TOL}")
+        worst = max(worst, max(rels))
+        del args, got, again, want, q, k, v
+    return worst
+
+
+def time_bf16_bwd(fa, fab, device, card: str):
+    """Phase 24: the bf16 backward at the training paths' shapes
+    (BF16_BWD_SHAPES), timed as phase 9 beside its bf16 plain version, the
+    autograd backward of bf16 F.scaled_dot_product_attention and the bound
+    at the bf16 rate, with the fp32 kernel at the same shape in the same
+    call. Returns (kernel ms, plain ms, library ms, (bound ms, by)) at
+    AOTT's training shape."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(SEED + 5)
+    result = None
+    for label, b, lq, lk, h, d, dv in BF16_BWD_SHAPES:
+        args, (q32, k32, v32, do32) = bf16_bwd_inputs(
+            fa, rng, b, lq, lk, h, d, dv, None, device)
+        q, k, v, vl = args[:4]
+        out32, lse32 = fa.flash_attention_cuda(q32, k32, v32, None, h, d)
+        args32 = (q32, k32, v32, None, out32, lse32, do32, h, d)
+        qs, ks, vs, mask = sdpa_args(q, k, v, vl, h, d)
+        backend = sdpa_backend(qs, ks, vs, mask)
+        leaves = [x.requires_grad_() for x in (qs, ks, vs)]
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_dout = args[6].reshape(b, lq, h, dv).transpose(1, 2)
+        t = time_fns({
+            "plain": lambda: fab.flash_attention_bwd_plain(*args, h, d),
+            "kernel": lambda: fab.flash_attention_bwd_cuda(*args, h, d),
+            "fp32 kernel": lambda: fab.flash_attention_bwd_cuda(*args32),
+            "library": lambda: torch.autograd.grad(
+                lib_out, leaves, lib_dout, retain_graph=True)},
+            *((20, 3) if dv > 32 else ()))
+        del lib_out, leaves
+        b_ms, b_by = flash_bwd_bound_live(lq, [lk] * b, h, d, dv, True)
+        f_ms = flash_bwd_bound_live(lq, [lk] * b, h, d, dv)[0]
+        print(f"phase 24: flash_attn_bwd_bf16 {label} shape B={b} Lq={lq} "
+              f"Lk={lk} h={h} d={d} dv={dv}: kernel {t['kernel']:.4f} ms, "
+              f"bf16 plain {t['plain']:.4f} ms, bf16 "
+              f"F.scaled_dot_product_attention backward ({backend}) "
+              f"{t['library']:.4f} ms; bound {b_ms:.4f} ms ({b_by}); the fp32 "
+              f"kernel {t['fp32 kernel']:.4f} ms (fp32 bound {f_ms:.4f} ms) "
+              f"({card})", flush=True)
+        result = result or (t["kernel"], t["plain"], t["library"],
+                            (b_ms, b_by))
+        del args, args32, q, k, v, q32, k32, v32, qs, ks, vs
+    return result
+
+
 class EllipseClips:
     """A fixed training set of `n` seeded clips (moving ellipses, as the
     serving video), each {'frames': (T, H, W, 3) uint8, 'labels': (T, H, W)
@@ -1105,19 +1282,22 @@ def ellipse_mask(seed: int, t: int, size: int, objects: int) -> np.ndarray:
     return mask
 
 
-def train_cfg(root: str, **over):
+def train_cfg(root: str, model: str = "aott", **over):
     from aot_tpu_torch.configs import build_config
 
-    cfg = build_config(stage="pre_ytb_dav", model="aott",
-                       TRAIN_DTYPE="float32", PRETRAIN=False,
-                       TRAIN_AUTO_RESUME=False, DATA_WORKERS=0,
-                       TRAIN_REMAT=True, TRAIN_LOG_STEP=5, DIR_ROOT=root,
-                       **over)
+    over = dict(dict(TRAIN_DTYPE="float32", PRETRAIN=False,
+                     TRAIN_AUTO_RESUME=False, DATA_WORKERS=0,
+                     TRAIN_REMAT=True, TRAIN_LOG_STEP=5, DIR_ROOT=root), **over)
+    cfg = build_config(stage="pre_ytb_dav", model=model, **over)
     return cfg.init_dir(make=True)
 
 
-def run_training(kernels, device, card: str):
-    """Phase 10. Returns the launches by kernel name."""
+def run_training(kernels, device, card: str, phase: int = 10,
+                 model: str = "aott", dtype: str = "float32",
+                 batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS):
+    """Phase 10 (AOTT, fp32), 25 (AOTT, bf16) or 26 (R50_DeAOTL, bf16):
+    `steps` training steps of `model` through Trainer.sequential_training.
+    Returns the launches by kernel name."""
     import shutil
 
     from aot_tpu_torch.models import build_vos_model
@@ -1125,13 +1305,13 @@ def run_training(kernels, device, card: str):
     from aot_tpu_torch.utils import checkpoint as ckpt_lib
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_train")
+                        f"chip_smoke_train_{model}_{dtype}")
     shutil.rmtree(root, ignore_errors=True)
-    cfg = train_cfg(root, TRAIN_BATCH_SIZE=TRAIN_BATCH, DATA_SEQ_LEN=TRAIN_T,
-                    TRAIN_TOTAL_STEPS=TRAIN_SCHEDULE)
+    cfg = train_cfg(root, model, TRAIN_DTYPE=dtype, TRAIN_BATCH_SIZE=batch,
+                    DATA_SEQ_LEN=TRAIN_T, TRAIN_TOTAL_STEPS=TRAIN_SCHEDULE)
     t0 = time.perf_counter()
-    data = EllipseClips(TRAIN_BATCH, TRAIN_T, SIZE, TRAIN_OBJECTS)
-    print(f"phase 10: {TRAIN_BATCH} clips of {TRAIN_T} frames at {SIZE}x{SIZE} "
+    data = EllipseClips(batch, TRAIN_T, SIZE, TRAIN_OBJECTS)
+    print(f"phase {phase}: {batch} clips of {TRAIN_T} frames at {SIZE}x{SIZE} "
           f"made in {time.perf_counter() - t0:.1f} s", flush=True)
     trainer = Trainer(cfg, seed=SEED, device=device)
     losses, ends = [], []
@@ -1140,7 +1320,7 @@ def run_training(kernels, device, card: str):
         torch.cuda.synchronize()
         ends.append(time.perf_counter())
         losses.append(float(stats["loss"]))
-        print(f"phase 10: step {step} loss {losses[-1]:.5f} pred_loss "
+        print(f"phase {phase}: step {step} loss {losses[-1]:.5f} pred_loss "
               f"{float(stats['pred_loss']):.5f} iou {float(stats['iou']):.4f} "
               f"grad_norm {float(stats['grad_norm']):.4f}", flush=True)
 
@@ -1148,104 +1328,169 @@ def run_training(kernels, device, card: str):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
     start = time.perf_counter()
-    trainer.sequential_training(TRAIN_STEPS, dataset=data, on_step=on_step)
+    trainer.sequential_training(steps, dataset=data, on_step=on_step)
     launches = read_counts(kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     step_ms = np.diff([start] + ends)[TRAIN_WARMUP:] * 1e3
-    print(f"phase 10: AOTT training {SIZE}x{SIZE}, B={TRAIN_BATCH}, T={TRAIN_T}, "
-          f"{TRAIN_OBJECTS} objects, fp32, recompute on, "
-          f"TRAIN_TOTAL_STEPS={TRAIN_SCHEDULE}: {len(step_ms)} steps after "
+    last10 = ""
+    if len(step_ms) > 10:
+        last10 = (f" (the last 10: median "
+                  f"{float(np.median(step_ms[-10:])):.1f} ms/step)")
+    print(f"phase {phase}: {cfg.MODEL_NAME} training {SIZE}x{SIZE}, B={batch}, "
+          f"T={TRAIN_T}, {TRAIN_OBJECTS} objects, {dtype}, recompute on, "
+          f"TRAIN_TOTAL_STEPS={TRAIN_SCHEDULE}, TRAIN_LONG_TERM_MEM_GAP="
+          f"{cfg.TRAIN_LONG_TERM_MEM_GAP}: {len(step_ms)} steps after "
           f"{TRAIN_WARMUP} warm-up: median {float(np.median(step_ms)):.1f} "
-          f"ms/step, p90 {float(np.percentile(step_ms, 90)):.1f} ms, "
-          f"{TRAIN_BATCH * TRAIN_T * 1e3 / float(np.median(step_ms)):.1f} "
+          f"ms/step, p90 {float(np.percentile(step_ms, 90)):.1f} ms{last10}, "
+          f"{batch * TRAIN_T * 1e3 / float(np.median(step_ms)):.1f} "
           f"frames/s; peak memory {peak:.2f} GiB ({card})", flush=True)
     layers = cfg.MODEL_LSTT_NUM
+    sfx = "_bf16" if dtype == "bfloat16" else ""
     per_step = dict({name: 0 for name in kernels},
-                    flash_attn_fwd=(2 * TRAIN_T + 2 * (TRAIN_T - 1)) * layers,
-                    flash_attn_bwd=2 * TRAIN_T * layers)
-    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
-    print(f"phase 10: kernel launches in the training path: {launches}, "
-          f"per step {({k: v / TRAIN_STEPS for k, v in launches.items()})} "
-          f"(expected {per_step}: two global attentions a frame, the "
-          f"{TRAIN_T - 1} propagated frames' forwards run again in the "
-          "backward)", flush=True)
+                    **{"flash_attn_fwd" + sfx:
+                       (2 * TRAIN_T + 2 * (TRAIN_T - 1)) * layers,
+                       "flash_attn_bwd" + sfx: 2 * TRAIN_T * layers})
+    want = {k: n * steps for k, n in per_step.items()}
+    print(f"phase {phase}: kernel launches in the training path: {launches}, "
+          f"per step {({k: v / steps for k, v in launches.items()})} "
+          f"(expected {per_step}: two global attentions a frame and block, "
+          f"the {TRAIN_T - 1} propagated frames' forwards run again in the "
+          "backward; local reads on the window form)", flush=True)
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
 
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    print(f"phase 10: mean loss of the first 5 steps {first:.5f}, of the "
+    print(f"phase {phase}: mean loss of the first 5 steps {first:.5f}, of the "
           f"last 5 {last:.5f}", flush=True)
     if not last < first:
         raise AssertionError(f"the loss did not fall: {losses}")
 
     raw = ckpt_lib.load_checkpoint(ckpt_lib.latest_checkpoint(cfg.DIR_CKPT),
                                    device)
-    if raw["step"] != TRAIN_STEPS or any(
+    if raw["step"] != steps or any(
             not torch.equal(v, raw["model"][k])
             for k, v in trainer.model.state_dict().items()):
         raise AssertionError("the raw checkpoint does not hold the model")
+    floats = [v for v in list(raw["model"].values())
+              + list(raw["optimizer"]["mu"].values())
+              + list(raw["ema"].values()) if v.is_floating_point()]
+    if any(v.dtype != torch.float32 for v in floats):
+        raise AssertionError("a checkpointed parameter, moment or EMA entry "
+                             "is not fp32")
     serving = build_vos_model(cfg, device=device)
     ema = ckpt_lib.load_checkpoint(
         ckpt_lib.latest_checkpoint(cfg.DIR_EMA_CKPT), device)
     serving.load_state_dict(ema["state_dict"], strict=True)
-    print(f"phase 10: checkpoint of step {raw['step']} reloaded (raw state "
-          "equal, EMA weights loaded strictly into a serving model)",
-          flush=True)
+    print(f"phase {phase}: checkpoint of step {raw['step']} reloaded (raw "
+          "state equal, parameters, Adam moments and EMA fp32, EMA weights "
+          "loaded strictly into a serving model)", flush=True)
+    del trainer, serving, raw, ema
+    torch.cuda.empty_cache()
     return launches
 
 
-def compare_train_step(device):
-    """Phase 11: one train step on the card and on the CPU from the same
-    weights and batch. Returns (loss error, worst gradient error)."""
+def train_step_on(cfg, dev, frames, labels, deterministic: bool):
+    """One train step of a seeded model on `dev`: (loss and grad_norm,
+    gradients, updated parameters), on the CPU."""
     from aot_tpu_torch.engine.train import build_train_engine
     from aot_tpu_torch.models import build_vos_model
     from aot_tpu_torch.train.step import create_train_state, make_train_step
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_cmp")
-    cfg = train_cfg(root, TRAIN_LSTT_DROPPATH=0.0, TRAIN_TOTAL_STEPS=1000)
-    data = EllipseClips(CMP_BATCH, CMP_T, CMP_SIZE, 3)
-    frames = np.stack([c["frames"] for c in data.clips], axis=1)
-    labels = np.stack([c["labels"] for c in data.clips], axis=1)
-    out = {}
-    for dev in (device, torch.device("cpu")):
-        model = build_vos_model(cfg, device=dev, train=True,
-                                generator=torch.Generator().manual_seed(SEED))
-        state = create_train_state(cfg, model)
-        step = make_train_step(cfg, build_train_engine(model, cfg))
-        stats = step(state, torch.from_numpy(frames).to(dev),
-                     torch.from_numpy(labels).to(dev),
-                     torch.full((CMP_BATCH,), 3, device=dev),
-                     torch.Generator().manual_seed(SEED), False)
-        out[dev.type] = (
-            {k: float(stats[k]) for k in ("loss", "grad_norm")},
+    model = build_vos_model(cfg, device=dev, train=True,
+                            generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, build_train_engine(model, cfg))
+    stats = step(state, torch.from_numpy(frames).to(dev),
+                 torch.from_numpy(labels).to(dev),
+                 torch.full((frames.shape[1],), 3, device=dev),
+                 torch.Generator().manual_seed(SEED), False,
+                 deterministic=deterministic)
+    return ({k: float(stats[k]) for k in ("loss", "grad_norm")},
             {n: p.grad.cpu() for n, p in model.named_parameters()
              if p.grad is not None},
             {n: p.detach().cpu() for n, p in model.named_parameters()})
-    (cs, cg, cp), (hs, hg, hp) = out["cuda"], out["cpu"]
+
+
+def compare_train_step(device, model: str = "aott", dtype: str = "float32",
+                       phase: int = 11, **over):
+    """Phase 11 (AOTT, fp32) and 27 (AOTT at bf16, DeAOTT at fp32 and bf16):
+    one train step on the card and on the CPU from the same weights and
+    batch, no id-shuffle difference (the same generator) and, for DeAOT, no
+    dropout (deterministic: the card's and the CPU's generators draw other
+    masks). fp32: loss and grad_norm within 1e-4 relative, every gradient
+    within 1e-3 of its leaf's largest entry (plus 1e-6 of the model's
+    largest), every updated parameter within a quarter of one LR unit. bf16
+    (tests/test_torch_port_train_bf16.py's tolerances): loss and grad_norm
+    within 2e-2 relative, each gradient leaf within 5e-2 of its largest
+    entry or twice the CPU's own bf16 rounding error there (its distance
+    from the CPU's fp32 step), whichever is larger, every updated
+    parameter within 1e-2 of its leaf's largest entry beyond two LR units
+    (Adam's first update is ~lr sign(g): an entry whose gradient's sign
+    bf16 decides otherwise moves 2 lr apart, all of a zero-initialised
+    leaf's scale). Returns (loss error, worst gradient error)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_cmp")
+    cfg = train_cfg(root, model, TRAIN_DTYPE=dtype, TRAIN_LSTT_DROPPATH=0.0,
+                    TRAIN_TOTAL_STEPS=1000, **over)
+    bf16 = dtype == "bfloat16"
+    deterministic = cfg.MODEL_VOS == "deaot"
+    data = EllipseClips(CMP_BATCH, CMP_T, CMP_SIZE, 3)
+    frames = np.stack([c["frames"] for c in data.clips], axis=1)
+    labels = np.stack([c["labels"] for c in data.clips], axis=1)
+    (cs, cg, cp), (hs, hg, hp) = (
+        train_step_on(cfg, dev, frames, labels, deterministic)
+        for dev in (device, torch.device("cpu")))
+    exact = None
+    if bf16:    # the CPU's fp32 step: bf16's own rounding error
+        cfg32 = train_cfg(root, model, TRAIN_DTYPE="float32",
+                          TRAIN_LSTT_DROPPATH=0.0, TRAIN_TOTAL_STEPS=1000,
+                          **over)
+        exact = train_step_on(cfg32, torch.device("cpu"), frames, labels,
+                              deterministic)[1]
     loss_err = abs(cs["loss"] - hs["loss"]) / abs(hs["loss"])
     norm_err = abs(cs["grad_norm"] - hs["grad_norm"]) / hs["grad_norm"]
-    # a gradient's error over its leaf's largest entry, with a floor of
-    # 1e-3 of the model's largest gradient: at init the self-attention's q
-    # and k gradients are ~1e-9 of it (its tokens are near alike) and are
-    # fp32 noise on both devices
     gmax = max(float(g.abs().max()) for g in hg.values())
     floor = 1e-6 * gmax
-    rel = sorted(((float((cg[n] - hg[n]).abs().max())
-                   / (float(hg[n].abs().max()) + 1e-3 * gmax),
-                   float(hg[n].abs().max()) / gmax, n) for n in hg),
-                 reverse=True)
+    label = f"{cfg.MODEL_NAME} {dtype}"
+    if bf16:
+        # a leaf's error over the larger of 5e-2 of its largest entry and
+        # twice the CPU's bf16 error on it: <= 1 passes
+        rel = sorted(((float((cg[n] - hg[n]).abs().max())
+                       / max(5e-2 * float(hg[n].abs().max()),
+                             2 * float((hg[n] - exact[n]).abs().max()),
+                             1e-30),
+                       float(hg[n].abs().max()) / gmax, n) for n in hg),
+                     reverse=True)
+        grad_gate, loss_gate, param_gate = 1.0, 2e-2, 1e-2
+    else:
+        # a gradient's error over its leaf's largest entry, with a floor of
+        # 1e-3 of the model's largest gradient: at init the
+        # self-attention's q and k gradients are ~1e-9 of it (its tokens
+        # are near alike) and are fp32 noise on both devices
+        rel = sorted(((float((cg[n] - hg[n]).abs().max())
+                       / (float(hg[n].abs().max()) + 1e-3 * gmax),
+                       float(hg[n].abs().max()) / gmax, n) for n in hg),
+                     reverse=True)
+        grad_gate, loss_gate, param_gate = 1e-3, 1e-4, 0.25
     grad_err = rel[0][0]
     for r, scale, n in rel[:3]:
-        print(f"phase 11: gradient {n}: err / (leaf scale + 1e-3 of the "
-              f"model's largest) {r:.2e}; leaf scale / model's largest "
-              f"{scale:.2e}", flush=True)
+        print(f"phase {phase}: {label} gradient {n}: "
+              + (f"err / max(5e-2 of the leaf's largest entry, 2x the CPU's "
+                 f"bf16 error) {r:.2e}" if bf16 else
+                 f"err / (leaf scale + 1e-3 of the model's largest) {r:.2e}")
+              + f"; leaf scale / model's largest {scale:.2e}", flush=True)
     lr = cfg.TRAIN_LR_MIN
-    param_err = 0.0     # in LR units, outside entries whose gradient is noise
+    param_err = 0.0
     for n, p in hp.items():
+        if bf16:        # beyond 2 LR units, of the leaf's largest entry
+            beyond = ((cp[n] - p).abs() - 2 * lr).clamp(min=0.0)
+            param_err = max(param_err, float(beyond.max())
+                            / max(float(p.abs().max()), 1e-30))
+            continue
+        # in LR units, outside entries whose gradient is noise
         noise = hg[n].abs() < floor if n in hg else torch.ones_like(
             p, dtype=torch.bool)
         err = (cp[n] - p).abs() / lr
@@ -1253,15 +1498,17 @@ def compare_train_step(device):
             raise AssertionError(f"{n}: a noise entry moved > 2 LR units")
         param_err = max(param_err, float(err[~noise].max()) if
                         bool((~noise).any()) else 0.0)
-    print(f"phase 11: train step card vs CPU ({CMP_SIZE}x{CMP_SIZE}, "
-          f"B={CMP_BATCH}, T={CMP_T}): loss {cs['loss']:.6f} vs "
+    unit = ("beyond 2 LR units, of the leaf's largest entry" if bf16
+            else "LR units")
+    print(f"phase {phase}: {label} train step card vs CPU ({CMP_SIZE}x"
+          f"{CMP_SIZE}, B={CMP_BATCH}, T={CMP_T}): loss {cs['loss']:.6f} vs "
           f"{hs['loss']:.6f} (rel err {loss_err:.2e}), grad_norm rel err "
-          f"{norm_err:.2e}, worst gradient err / leaf scale {grad_err:.2e}, "
-          f"worst updated-parameter err {param_err:.3f} LR units "
-          f"(tolerances 1e-4, 1e-4, 1e-3, 0.25)", flush=True)
-    if not (loss_err <= 1e-4 and norm_err <= 1e-4 and grad_err <= 1e-3
-            and param_err <= 0.25):
-        raise AssertionError("train step: card and CPU disagree")
+          f"{norm_err:.2e}, worst gradient err {grad_err:.2e}, worst "
+          f"updated-parameter err {param_err:.3e} {unit} (tolerances "
+          f"{loss_gate}, {loss_gate}, {grad_gate}, {param_gate})", flush=True)
+    if not (loss_err <= loss_gate and norm_err <= loss_gate
+            and grad_err <= grad_gate and param_err <= param_gate):
+        raise AssertionError(f"train step {label}: card and CPU disagree")
     return loss_err, grad_err
 
 
@@ -1594,6 +1841,61 @@ def profile_serving(card: str, model_name: str, batch: int = 1) -> int:
         kernel = print_profile(prof, PROFILE_STEPS, label, unit)
         print(f"profile: {label}: the card busy {kernel / host:.0%} of the "
               f"unprofiled median {unit}", flush=True)
+    return 0
+
+
+def profile_training(card: str, model_name: str, dtype: str,
+                     batch: int) -> int:
+    """--profile-train MODEL [--dtype D] [--batch N]: where a training
+    step's time goes, at phase 10's, 25's or 26's configuration (B clips of
+    TRAIN_T seeded frames at SIZE, per-frame recompute): 3 warm-up steps of
+    the Trainer's train_step, 3 timed on the host clock (each ending in a
+    synchronize), then 2 under torch.profiler: kernel ms and launches a
+    step, the busy share against the unprofiled median, the kernels that
+    take the most time, and the peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aot_tpu_torch.train.trainer import Trainer
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_profile_train")
+    cfg = train_cfg(root, model_name, TRAIN_DTYPE=dtype,
+                    TRAIN_BATCH_SIZE=batch, DATA_SEQ_LEN=TRAIN_T,
+                    TRAIN_TOTAL_STEPS=TRAIN_SCHEDULE)
+    device = torch.device("cuda", 0)
+    trainer = Trainer(cfg, seed=SEED, device=device)
+    data = EllipseClips(batch, TRAIN_T, SIZE, TRAIN_OBJECTS)
+    frames = torch.from_numpy(np.stack([c["frames"] for c in data.clips],
+                                       1)).to(device)
+    labels = torch.from_numpy(np.stack([c["labels"] for c in data.clips],
+                                       1)).to(device)
+    obj_nums = torch.full((batch,), TRAIN_OBJECTS, device=device)
+    generator = torch.Generator().manual_seed(SEED)
+
+    def window(n: int) -> float:
+        seconds = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            trainer.train_step(trainer.state, frames, labels, obj_nums,
+                               generator, False)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return float(np.median(seconds) * 1e3)
+
+    window(3)
+    torch.cuda.reset_peak_memory_stats()
+    host = window(3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled = window(2)
+    print(f"profile: {cfg.MODEL_NAME} training {SIZE}x{SIZE}, B={batch}, "
+          f"T={TRAIN_T}, {dtype}: median {host:.1f} ms a step over 3 steps "
+          f"after 3 warm-up, {profiled:.1f} under the profiler over the next "
+          f"2; peak memory {peak:.2f} GiB ({card})", flush=True)
+    kernel = print_profile(prof, 2, f"{cfg.MODEL_NAME} {dtype}", "step")
+    print(f"profile: the card busy {kernel / host:.0%} of the unprofiled "
+          "median step", flush=True)
     return 0
 
 
@@ -2133,9 +2435,16 @@ def main() -> int:
     parser.add_argument("--profile-serve", metavar="MODEL",
                         help="profile MODEL's serving path (e.g. "
                              "r50_deaotl) instead of running the phases")
-    parser.add_argument("--batch", type=int, default=1,
+    parser.add_argument("--profile-train", metavar="MODEL",
+                        help="profile MODEL's training step (e.g. aott, "
+                             "r50_deaotl) instead of running the phases")
+    parser.add_argument("--dtype", default="bfloat16",
+                        help="with --profile-train: TRAIN_DTYPE")
+    parser.add_argument("--batch", type=int, default=None,
                         help="with --profile-serve: N videos a step "
-                             "(step_videos)")
+                             "(step_videos, default 1); with "
+                             "--profile-train: clips a step (default "
+                             f"{TRAIN_BATCH})")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this check runs on the "
@@ -2168,7 +2477,10 @@ def main() -> int:
     if args.profile_eval:
         return profile_full_res_eval(card, not args.no_autotune)
     if args.profile_serve:
-        return profile_serving(card, args.profile_serve, args.batch)
+        return profile_serving(card, args.profile_serve, args.batch or 1)
+    if args.profile_train:
+        return profile_training(card, args.profile_train, args.dtype,
+                                args.batch or TRAIN_BATCH)
 
     # phase 1
     t0 = time.perf_counter()
@@ -2176,7 +2488,7 @@ def main() -> int:
     for dt in (torch.float32, torch.bfloat16):
         lwa._entry(dt)
         fa._entry(dt)
-    fab._lib()
+        fab._entry(dt)
     print(f"phase 1: built {', '.join(os.path.relpath(s) for s in sos)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in sources:
@@ -2191,8 +2503,10 @@ def main() -> int:
     bf16_err, bf16_times = check_bf16_kernels(lwa, fa, device, card)
     max_err.update(bf16_err)
     times.update(bf16_times)
-    print(f"phases 1-3, 8, 9, 19 done at {time.perf_counter() - start:.1f} s",
-          flush=True)
+    max_err["flash_attn_bwd_bf16"] = check_bf16_bwd(fa, fab, device)
+    times["flash_attn_bwd_bf16"] = time_bf16_bwd(fa, fab, device, card)
+    print(f"phases 1-3, 8, 9, 19, 23, 24 done at "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
 
     # phases 4-7
     video, mask = synthetic_video(SEED, STEPS + 1 + CPU_STEPS, SIZE, OBJECTS)
@@ -2264,6 +2578,21 @@ def main() -> int:
         for k, n in part.items():
             total[k] += n
     print(f"phases 21, 22 done at {time.perf_counter() - start:.1f} s",
+          flush=True)
+
+    # phases 25-27: training at the configs' dtype, bf16, and DeAOT training
+    for part in (run_training(kernels, device, card, 25, "aott", "bfloat16"),
+                 run_training(kernels, device, card, 26, "r50_deaotl",
+                              "bfloat16", DEAOT_TRAIN_BATCH,
+                              DEAOT_TRAIN_STEPS)):
+        for k, n in part.items():
+            total[k] += n
+    compare_train_step(device, "aott", "bfloat16", 27)
+    compare_train_step(device, "deaott", "float32", 27,
+                       TRAIN_LONG_TERM_MEM_GAP=1)
+    compare_train_step(device, "deaott", "bfloat16", 27,
+                       TRAIN_LONG_TERM_MEM_GAP=1)
+    print(f"phases 25-27 done at {time.perf_counter() - start:.1f} s",
           flush=True)
     unused = [name for name, n in total.items() if n == 0]
     if unused:

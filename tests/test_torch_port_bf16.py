@@ -209,11 +209,21 @@ def test_use_flash_threshold_follows_dtype():
 
 
 def test_bf16_training_refused():
-    q = torch.zeros(1, 4, 8, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="float32"):
-        fa.flash_attention_train(q, q, q, None, 1)
+    """What the training dtypes take and refuse: the flash path trains at
+    bf16 (bf16 out, bf16 gradients), TRAIN_DTYPE bfloat16 builds a bf16
+    model with fp32 parameters, and a dtype that is neither float32 nor
+    bfloat16 is refused."""
+    q = torch.randn(1, 4, 8, dtype=BF16, requires_grad=True)
+    out = fa.flash_attention_train(q, q, q, None, 1)
+    out.float().sum().backward()
+    assert out.dtype == BF16 and q.grad.dtype == BF16
     cfg = port_build_config(stage="pre_ytb_dav", model="aott",
                             TRAIN_DTYPE="bfloat16")
+    model = build_vos_model(cfg, device="cpu", train=True)
+    assert model.compute_dtype == BF16 and model.training
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    cfg = port_build_config(stage="pre_ytb_dav", model="aott",
+                            TRAIN_DTYPE="float16")
     with pytest.raises(NotImplementedError, match="TRAIN_DTYPE"):
         build_vos_model(cfg, device="cpu", train=True)
     cfg = port_build_config(stage="pre_ytb_dav", model="aott",

@@ -140,14 +140,18 @@ def test_plain_matches_jax_dispatch_above_the_threshold():
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 @pytest.mark.parametrize("tokens", [2500, 2501])
 def test_route(tokens, device, training):
-    """The JAX rule (aot_tpu/ops/attention.py:376-383): above 2,500 query
+    """The JAX rule (aot_tpu/ops/attention.py:351-383): above 2,500 query
     tokens at dilation 1 a card tensor takes the wide kernel, at or below
-    it the flat one; a CPU tensor, and training on any device, the plain
-    version; a card tensor at another dilation has no kernel."""
+    it the flat one; training on any device the window form; any other CPU
+    tensor the plain version; a card tensor at another dilation has no
+    kernel."""
     route = att.local_route(tokens, device, 1, training)
-    if training or device == "cpu":
+    if training:
+        assert route == "window"
+    elif device == "cpu":
         assert route == "plain"
     else:
         assert route == ("wide" if tokens > 2500 else "flat")
-    want_dil2 = "plain" if training or device == "cpu" else "none"
+    want_dil2 = ("window" if training else "plain" if device == "cpu"
+                 else "none")
     assert att.local_route(tokens, device, 2, training) == want_dil2

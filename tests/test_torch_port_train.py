@@ -438,9 +438,7 @@ def test_trainer_two_steps_checkpoint_and_auto_resume(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    ([], "TRAIN_DTYPE='bfloat16'"),
     (["--fp32", "--gpu_num", "2"], "MESH_DP_SIZE=2"),
-    (["--fp32", "--model", "deaott"], "trains AOT models only"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, match):
     from aot_tpu_torch.train.__main__ import main
