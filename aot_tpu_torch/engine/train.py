@@ -2,7 +2,9 @@
 aot_tpu/engine/train.py; reference: networks/engines/aot_engine.py:33-108).
 
 For a T-frame clip:
-  1. encode all T*B frames in one batched pass;
+  1. encode all T*B frames in one batched pass (with trainable BN,
+     MODEL_FREEZE_BN=False, the one pass that normalises by batch moments
+     and moves the running stats: aot_tpu/engine/train.py:136-151);
   2. seed the memory from frame 0 and its ground-truth mask; auxiliary loss
      on frame 0 (and on frame 1 when `enable_prev_frame`);
   3. propagate the remaining frames, one loss each; before every frame after
@@ -13,7 +15,9 @@ For a T-frame clip:
 The memory is written out of place (`inplace_memory = False`): autograd
 saved the buffers the last frame read. With `remat`, each propagated
 frame's forward is recomputed in the backward (torch.utils.checkpoint,
-non-reentrant) instead of kept: the JAX package's `TRAIN_REMAT`. Dropout
+non-reentrant) instead of kept: the JAX package's `TRAIN_REMAT`. The
+recomputed function starts from the encoded features, so it never runs a
+BN: the running stats move once a step. Dropout
 and stochastic depth draw from a generator made from (`seed`, frame) inside
 the recomputed function, so the recompute replays the same draws, for AOT's
 LSTT and DeAOT's GPM stack alike.
@@ -139,7 +143,8 @@ class TrainEngine(VOSEngine):
         dev = frames.device
         input_size = (h, w)
 
-        # 1. offline encoder: all frames in one pass
+        # 1. offline encoder: all frames in one pass, the step's only BN
+        # pass (batch moments with trainable BN; never recomputed)
         xs = self.encode_image(frames.reshape(t * b, h, w, 3))
         feats = [x.reshape((t, b) + x.shape[1:]) for x in xs]
 

@@ -35,7 +35,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--split", type=str, default="")
     parser.add_argument("--ckpt_path", type=str, default="")
     parser.add_argument("--ckpt_step", type=int, default=-1)
-    parser.add_argument("--ema", action="store_true", default=False)
+    parser.add_argument("--ema", action="store_true", default=False,
+                        help="evaluate the EMA stream (DIR_EMA_CKPT); a "
+                             "trainable-BN (MODEL_FREEZE_BN=False) run's "
+                             "EMA checkpoint carries its running stats and "
+                             "loads strictly into the frozen-BN eval model")
     parser.add_argument("--flip", action="store_true")
     parser.add_argument("--ms", nargs="+", type=float, default=[1.0])
     parser.add_argument("--max_resolution", type=float, default=480 * 1.3)
@@ -118,7 +122,10 @@ def resolve_checkpoint(args: argparse.Namespace, cfg) -> Optional[str]:
 
 
 def load_model(cfg, args: argparse.Namespace, device):
-    """The serving model with the weights the arguments name."""
+    """The serving model with the weights the arguments name. The model
+    is always built with frozen BN (aot_tpu/models/aot.py:343-345); a
+    checkpoint of a trainable-BN run has the same keys (its BN weight,
+    bias and running stats) and loads into it strictly."""
     from aot_tpu_torch.models import build_vos_model
     from aot_tpu_torch.utils import checkpoint as ckpt_lib
     from aot_tpu_torch.utils.weights import load_reference_state_dict

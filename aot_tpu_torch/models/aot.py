@@ -49,16 +49,19 @@ class AOT(nn.Module):
                  lstt_num: int = 1, self_heads: int = 8, att_heads: int = 8,
                  decoder_intermediate: bool = True,
                  align_corners: bool = True, id_dropout: float = 0.0,
-                 compute_dtype: torch.dtype = torch.float32, **lstt_drop):
+                 compute_dtype: torch.dtype = torch.float32,
+                 frozen_bn: bool = True, **lstt_drop):
         """lstt_drop: the LSTT stack's dropout and stochastic-depth rates
         (emb_dropout, droppath, lt_dropout, st_dropout, droppath_lst,
-        droppath_scaling); they act only on a forward given a generator."""
+        droppath_scaling); they act only on a forward given a generator.
+        frozen_bn=False: the encoder's BatchNorms are trainable
+        (encoders.common.TrainableBatchNorm2d)."""
         super().__init__()
         self.compute_dtype = compute_dtype
         self.emb_dim = emb_dim
         self.max_obj_num = max_obj_num
         self.id_dropout = id_dropout
-        self.encoder = build_encoder(encoder_name)
+        self.encoder = build_encoder(encoder_name, frozen_bn)
         self.encoder_projector = Conv2d(encoder_dims[-1], emb_dim, 1)
         self.LSTT = self._make_lstt(lstt_num, emb_dim, self_heads, att_heads,
                                     decoder_intermediate, **lstt_drop)
@@ -280,10 +283,15 @@ def build_vos_model(cfg, device=None,
 
     train=False: the serving model, in eval mode with gradients off,
     computing in TEST_DTYPE.
-    train=True: the trainable model (AOT or DeAOT, frozen BN), computing
-    in TRAIN_DTYPE, in train mode with gradients on; the FrozenBN
-    statistics and affine stay buffers, as the JAX package stop_gradients
-    them. Its dropout and stochastic depth (TRAIN_LSTT_*, the same keys for
+    train=True: the trainable model (AOT or DeAOT), computing in
+    TRAIN_DTYPE, in train mode with gradients on. With MODEL_FREEZE_BN
+    (every config's default) the FrozenBN statistics and affine stay
+    buffers, as the JAX package stop_gradients them; with
+    MODEL_FREEZE_BN=False the encoder's BNs are trainable, normalising by
+    global-batch moments in train mode (encoders.common.
+    TrainableBatchNorm2d). The serving model is always built frozen and
+    loads either kind's state dict strictly (aot_tpu/models/aot.py:343-345).
+    Its dropout and stochastic depth (TRAIN_LSTT_*, the same keys for
     both families, as aot_tpu/models/aot.py:336-353 passes them) act on a
     forward given a generator. Both dtypes are float32 or bfloat16."""
     device = resolve_device(device)
@@ -298,10 +306,6 @@ def build_vos_model(cfg, device=None,
         raise NotImplementedError(
             f"{dtype_key}={cfg.get(dtype_key)!r}: aot_tpu_torch "
             f"{'trains' if train else 'serves'} in {sorted(dtypes)}")
-    if train and not cfg.MODEL_FREEZE_BN:
-        raise NotImplementedError(
-            "MODEL_FREEZE_BN=False (trainable BN) is not ported "
-            "(ROADMAP.md, Queue 1)")
     drop = dict(id_dropout=cfg.TRAIN_LSTT_ID_DROPOUT,
                 emb_dropout=cfg.TRAIN_LSTT_EMB_DROPOUT,
                 droppath=cfg.TRAIN_LSTT_DROPPATH,
@@ -319,7 +323,8 @@ def build_vos_model(cfg, device=None,
         att_heads=cfg.MODEL_ATT_HEADS,
         decoder_intermediate=cfg.MODEL_DECODER_INTERMEDIATE_LSTT,
         align_corners=cfg.MODEL_ALIGN_CORNERS,
-        compute_dtype=dtypes[str(cfg.get(dtype_key))], **drop)
+        compute_dtype=dtypes[str(cfg.get(dtype_key))],
+        frozen_bn=cfg.MODEL_FREEZE_BN or not train, **drop)
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
     model = model.to(device)

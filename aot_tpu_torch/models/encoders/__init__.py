@@ -3,6 +3,7 @@
 
 from torch import nn
 
+from aot_tpu_torch.models.encoders.common import unfreeze_bn
 from aot_tpu_torch.models.encoders.mobilenetv2 import MobileNetV2
 from aot_tpu_torch.models.encoders.mobilenetv3 import MobileNetV3Large
 from aot_tpu_torch.models.encoders.resnest import ResNeSt
@@ -10,7 +11,15 @@ from aot_tpu_torch.models.encoders.resnet import ResNet50, ResNet101
 from aot_tpu_torch.models.encoders.swin import SwinTransformer
 
 
-def build_encoder(name: str) -> nn.Module:
+def build_encoder(name: str, frozen_bn: bool = True) -> nn.Module:
+    """The encoder `name` (aot_tpu/models/encoders/__init__.py:11). With
+    frozen_bn=False every BatchNorm is trainable with global-batch moments
+    (MobileNetV2/V3, ResNet, ResNeSt; Swin has only LayerNorms)."""
+    encoder = _build(name)
+    return encoder if frozen_bn else unfreeze_bn(encoder)
+
+
+def _build(name: str) -> nn.Module:
     if name == "mobilenetv2":
         return MobileNetV2()
     if name == "resnet50":

@@ -4,8 +4,10 @@ aot_tpu/train/ema.py; reference: utils/ema.py).
 decay = min(d, (1 + n) / (10 + n)) at the n-th update, with
 d = 1 - 1 / (TRAIN_TOTAL_STEPS * TRAIN_EMA_RATIO) (reference
 trainer.py:92-97). The shadow covers the parameters; `state_dict` gives a
-full model state dict with the shadow in their place (the buffers, frozen
-BN statistics here, are the model's own and never change).
+full model state dict with the shadow in their place and the model's own
+buffers beside it: the BN statistics, fixed with frozen BN and the current
+running stats with trainable BN, as aot_tpu's EMA stream carries
+batch_stats (aot_tpu/train/trainer.py:234-241).
 """
 
 from __future__ import annotations

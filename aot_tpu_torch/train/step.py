@@ -1,5 +1,22 @@
 """The training step: loss -> backward -> clipped AdamW -> EMA (port of
-aot_tpu/train/step.py:47-95), on one device.
+aot_tpu/train/step.py:47-95), on one device or data-parallel over the
+ranks of a live process group (aot_tpu/train/step.py:128
+shard_train_step's semantics).
+
+Data parallel: each rank holds 1/W of the global batch. The loss is each
+rank's mean over its share, and the gradients are averaged across the
+ranks after the backward (parallel.average_gradients: flat buckets, one
+all_reduce each), so they are those of the global batch's mean loss before
+the global-norm clip; Adam, the update and the EMA then run identically on
+every rank. Every rank draws the global (B, M+1, M+1) id shuffle from the
+shared generator and keeps its own rows, so a step at deterministic=True
+computes what one process computes on the whole batch (trainable BN's
+moments are global too: models/encoders/common.py). Gradients are
+averaged explicitly rather than by DistributedDataParallel: the engine
+drives the model through its methods (encode_image, LSTT, decoder), never
+its forward, which DDP's hooks follow; which parameters a step leaves
+unused changes with use_prev_pred; and frozen stages' gradients must be
+reduced because they enter the clip norm (aot_tpu's rule).
 
 The whole step — the forward and the backward, whose per-frame recompute
 re-runs the forward — runs inside `attn_training_context`, so every global
@@ -19,6 +36,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from aot_tpu_torch import parallel
 from aot_tpu_torch.engine.train import TrainEngine
 from aot_tpu_torch.ops.attention import attn_training_context
 from aot_tpu_torch.ops.image import generate_permute_matrix
@@ -53,12 +71,20 @@ def create_train_state(cfg, model: nn.Module,
                       ema=EMA(model, ema_decay_for(cfg)) if with_ema else None)
 
 
+# the stats averaged across the ranks (the log's; last_pred stays the rank's)
+LOGGED_MEANS = ("loss", "aux_loss", "pred_loss", "frame_losses", "iou")
+
+
 def make_train_step(cfg, engine: TrainEngine, enable_id_shuffle: bool = True):
     """Returns train_step(state, frames, masks, obj_nums, generator,
     use_prev_pred, deterministic=False) -> stats, which updates `state` in
     place. frames (T, B, H, W, 3), masks (T, B, H, W), obj_nums (B,) on the
-    model's device; `generator`, a CPU torch.Generator, draws the id
-    shuffle and the seed of the step's dropout. deterministic=True runs the
+    model's device, this rank's share of the batch; `generator`, a CPU
+    torch.Generator seeded alike on every rank, draws the global id
+    shuffle and the seed of the step's dropout (offset by the rank, so
+    each rank's share draws its own masks). Under a live process group the
+    gradients and the logged stats are averaged across the ranks
+    (grad_norm is then the global batch's). deterministic=True runs the
     step with no dropout or stochastic depth (the JAX engine's
     deterministic=True, as parity runs use it: DeAOT's DWConv2d drops
     channels in every training forward)."""
@@ -71,13 +97,14 @@ def make_train_step(cfg, engine: TrainEngine, enable_id_shuffle: bool = True):
                    generator: torch.Generator, use_prev_pred: bool,
                    deterministic: bool = False) -> Dict[str, torch.Tensor]:
         b = frames.shape[1]
+        rank, world = parallel.rank(), parallel.world_size()
         shuffle = None
         if enable_id_shuffle:
-            shuffle = generate_permute_matrix(max_obj + 1, b, generator
-                                              ).to(frames.device)
+            shuffle = generate_permute_matrix(
+                max_obj + 1, b * world, generator)[rank * b:(rank + 1) * b]
+            shuffle = shuffle.to(frames.device)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
-        if deterministic:
-            seed = None
+        seed = None if deterministic else seed + rank
         state.model.zero_grad(set_to_none=True)
         with attn_training_context():
             loss, stats = engine.forward(
@@ -86,6 +113,9 @@ def make_train_step(cfg, engine: TrainEngine, enable_id_shuffle: bool = True):
                 enable_prev_frame=enable_prev_frame, seed=seed)
             loss.backward()
         stats = {k: v.detach() for k, v in stats.items()}
+        if parallel.is_live():
+            parallel.average_gradients(state.optimizer.params)
+            stats = parallel.mean_across_ranks(stats, LOGGED_MEANS)
         stats["grad_norm"] = state.optimizer.step()
         if state.ema is not None:
             state.ema.update(state.model)

@@ -4,7 +4,9 @@ Files are `save_step_{N}.pth`, written with torch.save (to a temporary name,
 then renamed, so a reader never sees half a file); at most `max_keep` are
 kept per directory, the newest. The trainer writes two streams: the raw
 training state (model, optimizer, EMA, step) under DIR_CKPT and the EMA
-model state dict under DIR_EMA_CKPT.
+model state dict under DIR_EMA_CKPT; a write that fails with an OSError
+goes to a backup directory (the trainer's ./backup/{EXP_NAME}/
+{STAGE_NAME}/{ckpt,ema_ckpt}).
 """
 
 from __future__ import annotations
@@ -34,16 +36,33 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, obj: Any,
-                    max_keep: int = 8) -> str:
+                    max_keep: int = 8,
+                    backup_dir: Optional[str] = None) -> str:
     """Write save_step_{step}.pth and delete all but the newest
-    `max_keep`. Returns the path."""
+    `max_keep` of its directory; on an OSError, write to `backup_dir`
+    instead when one is given (reference: utils/checkpoint.py:124-160;
+    aot_tpu/utils/checkpoint.py:50-70). Returns the path."""
+    try:
+        path = _write(ckpt_dir, step, obj)
+    except OSError:
+        if backup_dir is None:
+            raise
+        path = _write(backup_dir, step, obj)
+    for old in list_checkpoints(os.path.dirname(path))[:-max_keep]:
+        try:
+            os.remove(old)
+        except OSError:
+            pass
+    return path
+
+
+def _write(ckpt_dir: str, step: int, obj: Any) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"save_step_{step}.pth")
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(obj, tmp)
+    with open(tmp, "wb") as f:     # a failed write raises OSError
+        torch.save(obj, f)
     os.replace(tmp, path)
-    for old in list_checkpoints(ckpt_dir)[:-max_keep]:
-        os.remove(old)
     return path
 
 

@@ -44,6 +44,17 @@ The encoders' keys (torchvision's and the reference's module names):
   mobilenetv3  262  features.0.{0,1}, features.{1..15}.conv.{j} (squeeze-
                     excite .fc.{0,2}), conv.{0,1}
 
+Trainable BN (MODEL_FREEZE_BN=False) has the same four keys a BN: weight
+and bias are parameters, running_mean and running_var buffers. aot_tpu
+keeps the running stats of such a model in a `batch_stats` tree beside
+its params, under the same module paths (aot_tpu/models/encoders/
+common.py:60-64). To carry them across, merge the batch_stats tree into
+the params tree leaf by leaf, as aot_tpu/utils/checkpoint.py:103-108 does
+(the paths are disjoint: weight/bias against running_mean/running_var),
+export the merged tree with aot_tpu.utils.torch_import.export_state_dict,
+and load the result strictly with load_reference_state_dict, into a
+trainable-BN or a frozen model alike (tests/test_torch_port_syncbn.py).
+
 Keys of the 14 variants (configs/models.py; tests/test_torch_port_variants.py):
   AOTT 322, AOTS 356, AOTB 390, AOTL 390, R50_AOTL 345, R101_AOTL 600,
   RS101_AOTL 850, SwinB_AOTL 432, DeAOTT 325, DeAOTS 362, DeAOTB 399,
@@ -68,3 +79,4 @@ def load_reference_state_dict(model: nn.Module,
     tensors = {k: torch.tensor(np.asarray(v), device=device)
                for k, v in sd.items()}
     model.load_state_dict(tensors, strict=True)
+

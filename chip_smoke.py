@@ -8,15 +8,16 @@ PyTorch built for CUDA:
     python3 chip_smoke.py --profile-eval [--no-autotune]
     python3 chip_smoke.py --profile-serve MODEL [--batch N]
     python3 chip_smoke.py --profile-train MODEL [--dtype D] [--batch N]
+                          [--trainable-bn]
 
 The second form profiles phase 12's evaluation and runs nothing else
 (`profile_full_res_eval`); the third profiles a model's serving path, as
 phases 6, 14 and 16 run it (with --batch N: N videos a step, as phase 21),
 before and after the flash switch (`profile_serving`); the fourth a
-training step, as phases 10, 25 and 26 run it (`profile_training`).
+training step, as phases 10, 25, 26 and 28 run it (`profile_training`).
 
 Phases (2, 3, 8, 9, 19, 23 and 24, the kernel checks, run first, then 4
-to 7, then 10 to 18, then 20 to 22, then 25 to 27); any failure raises and
+to 7, then 10 to 18, then 20 to 22, then 25 to 30); any failure raises and
 the exit code is non-zero:
   0. refuse to run without a card; print the card's name and power limit
      (nvidia-smi) and the torch/CUDA versions; TF32 off for matmuls and
@@ -202,7 +203,34 @@ the exit code is non-zero:
      rounding error there (against the CPU's fp32 step), whichever is
      larger, the updated parameters within 1e-2 of each leaf's largest
      entry.
- 28. one JSON line with the kernels (the bf16 instantiations as entries of
+ 28. the ninth main path, data-parallel training with trainable BN:
+     R50_DeAOTL at bf16, B=16, T=5, 465x465, MODEL_FREEZE_BN=False, 10
+     steps through the Trainer as rank 0 of a world-size-1 NCCL process
+     group (parallel.launch): gradients and logged stats all-reduced every
+     step. Reported as 26 and beside its ms/step and peak memory (frozen
+     BN, this call). Gates: 26's (loss falls, 54 and 30 bf16 flash
+     launches a step, the checkpoints), every BN's running stats moved off
+     their init and finite, metrics.jsonl holding a line per log step, the
+     image log written, and the EMA checkpoint loaded strictly into the
+     frozen serving model, which serves 5 frames through
+     VOSInferEngine.step (the local kernel's launches asserted).
+ 29. one fp32 train step with MODEL_FREEZE_BN=False, card against CPU, as
+     11 (deterministic, float frames): BN weight and bias among the
+     gradients, the running stats within 1e-5 of each channel's spread
+     (|d mean| / sqrt(var), |d var| / var). With trainable BN at seeded
+     weights the step's gradients move far beyond fp32 rounding when the
+     frames move by 1e-6 relative (on the CPU, in aot_tpu too), so the
+     grad norm and gradient gates are phase 11's or twice the CPU's own
+     move under that change, whichever is larger, and parameters whose
+     card and CPU gradients differ by more than half get two LR units.
+ 30. data-parallel equality on the card: AOTT, fp32, TF32 off,
+     MODEL_FREEZE_BN=False, deterministic, one step by one process at
+     B=16 against one step by two gloo ranks (spawned processes) of B=8
+     on the same card: loss and grad norm within 1e-5 relative, running
+     stats within 1e-5 of each channel's spread, the updated parameters
+     within a quarter of one LR unit (two where Adam's first update may
+     flip), the ranks' models identical.
+ 31. one JSON line with the kernels (the bf16 instantiations as entries of
      their own; launches summed over the main paths; each kernel's time,
      plain time, bound and library time at its main shape), the card line,
      and last the result line {"ok": true, "device": {...}}; every kernel
@@ -244,6 +272,7 @@ DEAOT_TRAIN_STEPS = 10
 TRAIN_SCHEDULE = 1000  # TRAIN_TOTAL_STEPS: the LR, aux-weight and hard-mining
                        # schedules' length; the steps run stay in its warm-up
 CMP_SIZE, CMP_BATCH, CMP_T = 97, 2, 3   # phase 11
+STATS_TOL = 1e-5     # BN running stats, of each channel's spread (29, 30)
 EVAL_SIZE = (1080, 1920)  # DAVIS 2017 Full-Resolution frames
 EVAL_GRID = (64, 113)     # at --max_resolution 1080: 1009x1793 input
 EVAL_FRAMES = 9           # the reference frame, then 8 timed by the evaluator
@@ -314,6 +343,15 @@ def expected_launches(kernels, frames: int, flash_reads: int, layers: int,
          + sfx] = frames * layers
     want["flash_attn_fwd" + sfx] = flash_reads * layers
     return want
+
+
+def kernel_counters():
+    """kernel name -> (its wrapper's module, the name of its count)."""
+    import importlib
+
+    return {name: (importlib.import_module(
+        f"aot_tpu_torch.ops.kernels.{mod}"), attr)
+        for name, (mod, attr, _, _) in KERNELS.items()}
 
 
 def reset_counts(kernels) -> None:
@@ -1220,14 +1258,24 @@ def time_bf16_bwd(fa, fab, device, card: str):
         with torch.enable_grad():
             lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
         lib_dout = args[6].reshape(b, lq, h, dv).transpose(1, 2)
+        # the fp32 kernel's own yardsticks at this shape (PERF.md row 6)
+        qs32, ks32, vs32, mask32 = sdpa_args(q32, k32, v32, None, h, d)
+        leaves32 = [x.requires_grad_() for x in (qs32, ks32, vs32)]
+        with torch.enable_grad():
+            lib_out32 = F.scaled_dot_product_attention(*leaves32,
+                                                       attn_mask=mask32)
+        lib_dout32 = do32.reshape(b, lq, h, dv).transpose(1, 2)
         t = time_fns({
             "plain": lambda: fab.flash_attention_bwd_plain(*args, h, d),
             "kernel": lambda: fab.flash_attention_bwd_cuda(*args, h, d),
             "fp32 kernel": lambda: fab.flash_attention_bwd_cuda(*args32),
+            "fp32 plain": lambda: fab.flash_attention_bwd_plain(*args32),
+            "fp32 library": lambda: torch.autograd.grad(
+                lib_out32, leaves32, lib_dout32, retain_graph=True),
             "library": lambda: torch.autograd.grad(
                 lib_out, leaves, lib_dout, retain_graph=True)},
             *((20, 3) if dv > 32 else ()))
-        del lib_out, leaves
+        del lib_out, leaves, lib_out32, leaves32
         b_ms, b_by = flash_bwd_bound_live(lq, [lk] * b, h, d, dv, True)
         f_ms = flash_bwd_bound_live(lq, [lk] * b, h, d, dv)[0]
         print(f"phase 24: flash_attn_bwd_bf16 {label} shape B={b} Lq={lq} "
@@ -1235,11 +1283,14 @@ def time_bf16_bwd(fa, fab, device, card: str):
               f"bf16 plain {t['plain']:.4f} ms, bf16 "
               f"F.scaled_dot_product_attention backward ({backend}) "
               f"{t['library']:.4f} ms; bound {b_ms:.4f} ms ({b_by}); the fp32 "
-              f"kernel {t['fp32 kernel']:.4f} ms (fp32 bound {f_ms:.4f} ms) "
+              f"kernel {t['fp32 kernel']:.4f} ms, fp32 plain "
+              f"{t['fp32 plain']:.4f} ms, fp32 F.scaled_dot_product_attention "
+              f"backward ({sdpa_backend(qs32, ks32, vs32, mask32)}) "
+              f"{t['fp32 library']:.4f} ms (fp32 bound {f_ms:.4f} ms) "
               f"({card})", flush=True)
         result = result or (t["kernel"], t["plain"], t["library"],
                             (b_ms, b_by))
-        del args, args32, q, k, v, q32, k32, v32, qs, ks, vs
+        del args, args32, q, k, v, q32, k32, v32, qs, ks, vs, qs32, ks32, vs32
     return result
 
 
@@ -1294,26 +1345,51 @@ def train_cfg(root: str, model: str = "aott", **over):
 
 def run_training(kernels, device, card: str, phase: int = 10,
                  model: str = "aott", dtype: str = "float32",
-                 batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS):
-    """Phase 10 (AOTT, fp32), 25 (AOTT, bf16) or 26 (R50_DeAOTL, bf16):
-    `steps` training steps of `model` through Trainer.sequential_training.
-    Returns the launches by kernel name."""
+                 batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS,
+                 nccl: bool = False, after=None, **over):
+    """Phase 10 (AOTT, fp32), 25 (AOTT, bf16), 26 (R50_DeAOTL, bf16) or 28
+    (R50_DeAOTL, bf16, trainable BN, nccl: the Trainer as rank 0 of a
+    world-size-1 NCCL group, parallel.launch): `steps` training steps of
+    `model` through Trainer.sequential_training, `over` the config's other
+    overrides. after(trainer, cfg), if given, runs once the checkpoint
+    checks pass. Returns (launches by kernel name, median ms/step, peak
+    GiB)."""
     import shutil
 
-    from aot_tpu_torch.models import build_vos_model
-    from aot_tpu_torch.train.trainer import Trainer
-    from aot_tpu_torch.utils import checkpoint as ckpt_lib
+    from aot_tpu_torch import parallel
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        f"chip_smoke_train_{model}_{dtype}")
+                        f"chip_smoke_train_{model}_{dtype}_{phase}")
     shutil.rmtree(root, ignore_errors=True)
     cfg = train_cfg(root, model, TRAIN_DTYPE=dtype, TRAIN_BATCH_SIZE=batch,
-                    DATA_SEQ_LEN=TRAIN_T, TRAIN_TOTAL_STEPS=TRAIN_SCHEDULE)
+                    DATA_SEQ_LEN=TRAIN_T, TRAIN_TOTAL_STEPS=TRAIN_SCHEDULE,
+                    **over)
     t0 = time.perf_counter()
     data = EllipseClips(batch, TRAIN_T, SIZE, TRAIN_OBJECTS)
     print(f"phase {phase}: {batch} clips of {TRAIN_T} frames at {SIZE}x{SIZE} "
           f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    if nccl:
+        run = {}
+        parallel.launch(lambda dev: run.update(out=run_training_body(
+            kernels, dev, card, phase, cfg, data, steps, batch, dtype,
+            after)), 1, devices=[str(device)])
+        return run["out"]
+    return run_training_body(kernels, device, card, phase, cfg, data, steps,
+                             batch, dtype, after)
+
+
+def run_training_body(kernels, device, card, phase, cfg, data, steps, batch,
+                      dtype, after):
+    from aot_tpu_torch import parallel
+    from aot_tpu_torch.models import build_vos_model
+    from aot_tpu_torch.train.trainer import Trainer
+    from aot_tpu_torch.utils import checkpoint as ckpt_lib
+
     trainer = Trainer(cfg, seed=SEED, device=device)
+    if parallel.is_live():
+        print(f"phase {phase}: the Trainer is rank {trainer.rank} of "
+              f"{trainer.world} ({torch.distributed.get_backend()})",
+              flush=True)
     losses, ends = [], []
 
     def on_step(step, stats):
@@ -1387,14 +1463,105 @@ def run_training(kernels, device, card: str, phase: int = 10,
     print(f"phase {phase}: checkpoint of step {raw['step']} reloaded (raw "
           "state equal, parameters, Adam moments and EMA fp32, EMA weights "
           "loaded strictly into a serving model)", flush=True)
+    if after is not None:
+        for k, n in after(trainer, cfg).items():
+            launches[k] += n
     del trainer, serving, raw, ema
     torch.cuda.empty_cache()
+    return launches, float(np.median(step_ms)), peak
+
+
+SERVE_STEPS = 5        # phase 28: frames served from the EMA checkpoint
+
+
+def trainable_bn_checks(trainer, cfg, kernels):
+    """Phase 28's gates after the run: the running stats moved off their
+    init and are finite, metrics.jsonl has a line per log step, the image
+    log exists, and the EMA checkpoint loads strictly into the frozen
+    serving model, which then serves SERVE_STEPS frames through
+    VOSInferEngine.step. Returns the serving run's launches."""
+    import json
+
+    from aot_tpu_torch.models import build_vos_model
+    from aot_tpu_torch.models.encoders.common import (FrozenBatchNorm2d,
+                                                       TrainableBatchNorm2d)
+    from aot_tpu_torch.utils import checkpoint as ckpt_lib
+
+    steps = trainer.state.step
+    bns = [m for m in trainer.model.modules()
+           if isinstance(m, TrainableBatchNorm2d)]
+    moved = sum(not (torch.equal(m.running_mean, torch.zeros_like(
+        m.running_mean)) and torch.equal(m.running_var, torch.ones_like(
+            m.running_var))) for m in bns)
+    finite = all(bool(torch.isfinite(m.running_mean).all()
+                      and torch.isfinite(m.running_var).all()) for m in bns)
+    print(f"phase 28: {len(bns)} trainable BNs, {moved} with running stats "
+          f"moved off their init, all finite: {finite}", flush=True)
+    if not bns or moved != len(bns) or not finite:
+        raise AssertionError("the running stats did not all move, or are "
+                             "not finite")
+    with open(os.path.join(cfg.DIR_LOG, "metrics.jsonl")) as f:
+        logged = [json.loads(line)["step"] for line in f]
+    want = list(range(cfg.TRAIN_LOG_STEP, steps + 1, cfg.TRAIN_LOG_STEP))
+    images = sorted(os.listdir(cfg.DIR_IMG_LOG))
+    print(f"phase 28: metrics.jsonl steps {logged}, image log {images}",
+          flush=True)
+    if logged != want or not images:
+        raise AssertionError(f"metrics.jsonl steps {logged} != {want}, or "
+                             "no image log")
+    serving = build_vos_model(cfg, device=trainer.device)
+    if any(isinstance(m, TrainableBatchNorm2d) for m in serving.modules()) \
+            or not any(isinstance(m, FrozenBatchNorm2d)
+                       for m in serving.modules()):
+        raise AssertionError("the serving model is not built frozen")
+    ema = ckpt_lib.load_checkpoint(
+        ckpt_lib.latest_checkpoint(cfg.DIR_EMA_CKPT), trainer.device)
+    serving.load_state_dict(ema["state_dict"], strict=True)
+    video, mask = synthetic_video(SEED, SERVE_STEPS + 1, SIZE, OBJECTS)
+    _, _, _, seconds, flash_steps, launches = run_main_path(
+        serving, cfg, video, mask, SERVE_STEPS, kernels, SIZE)
+    want = expected_launches(kernels, SERVE_STEPS + 1, sum(flash_steps),
+                             cfg.MODEL_LSTT_NUM)
+    print(f"phase 28: the EMA checkpoint (running stats in it) loaded "
+          f"strictly into the frozen serving model; {SERVE_STEPS} frames "
+          f"served, median {float(np.median(seconds)) * 1e3:.1f} ms/frame, "
+          f"launches {launches}", flush=True)
+    if launches != want or launches["local_window_attn"] == 0:
+        raise AssertionError(f"serving launches {launches} != {want}")
     return launches
 
 
-def train_step_on(cfg, dev, frames, labels, deterministic: bool):
+SENS_EPS = 1e-6     # phase 29: the relative move of the CPU's own frames
+
+
+def normalised_frames(frames: np.ndarray) -> np.ndarray:
+    """uint8 frames as the float pipeline gives them (the engine's own
+    normalisation, in fp32)."""
+    from aot_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+
+    return ((frames.astype(np.float32) / np.float32(255.0)
+             - np.asarray(IMAGENET_MEAN, np.float32))
+            / np.asarray(IMAGENET_STD, np.float32)).astype(np.float32)
+
+
+def running_stats_err(got, want) -> float:
+    """The worst running-stat error of `got` against `want` ({name:
+    tensor}), each BN channel's in units of its own spread: |d mean| /
+    sqrt(var) and |d var| / var."""
+    err = 0.0
+    for n, w in want.items():
+        if n.endswith("running_mean"):
+            spread = want[n[:-len("mean")] + "var"].sqrt()
+        else:
+            spread = w
+        err = max(err, float(((got[n] - w).abs() / spread).max()))
+    return err
+
+
+def train_step_on(cfg, dev, frames, labels, deterministic: bool,
+                  objects: int = 3):
     """One train step of a seeded model on `dev`: (loss and grad_norm,
-    gradients, updated parameters), on the CPU."""
+    gradients, updated parameters, BN running stats), on the CPU."""
     from aot_tpu_torch.engine.train import build_train_engine
     from aot_tpu_torch.models import build_vos_model
     from aot_tpu_torch.train.step import create_train_state, make_train_step
@@ -1405,18 +1572,147 @@ def train_step_on(cfg, dev, frames, labels, deterministic: bool):
     step = make_train_step(cfg, build_train_engine(model, cfg))
     stats = step(state, torch.from_numpy(frames).to(dev),
                  torch.from_numpy(labels).to(dev),
-                 torch.full((frames.shape[1],), 3, device=dev),
+                 torch.full((frames.shape[1],), objects, device=dev),
                  torch.Generator().manual_seed(SEED), False,
                  deterministic=deterministic)
     return ({k: float(stats[k]) for k in ("loss", "grad_norm")},
             {n: p.grad.cpu() for n, p in model.named_parameters()
              if p.grad is not None},
-            {n: p.detach().cpu() for n, p in model.named_parameters()})
+            {n: p.detach().cpu() for n, p in model.named_parameters()},
+            {n: b.cpu() for n, b in model.named_buffers() if "running" in n})
+
+
+# phase 29: the trainable BN alone, at the shapes of R50_DeAOTL's stem and
+# layer3 BNs (4 frames), card against CPU
+BN_SHAPES = ((4, 64, 233, 233), (4, 1024, 30, 30))
+BN_TOL = 1e-5           # fp32, of each tensor's largest entry
+BF16_BN_TOL = 1e-2      # bf16 output: one bf16 rounding of the product
+
+
+def compare_trainable_bn(device):
+    """Phase 29: a TrainableBatchNorm2d's train-mode forward and backward on
+    the card against the CPU on the same inputs: the output, the updated
+    running stats and the gradients of the input, weight and bias within
+    BN_TOL of each tensor's largest entry at fp32 (the sums add in another
+    order), the output within BF16_BN_TOL and the running stats within
+    BN_TOL at bf16 input. A well-conditioned check of the moments and
+    their gradients, which the whole step's gate (the step's own move,
+    PERF.md section 7) cannot make."""
+    from aot_tpu_torch.models.encoders.common import TrainableBatchNorm2d
+
+    rng = np.random.RandomState(SEED + 29)
+    worst = 0.0
+    for shape in BN_SHAPES:
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 2 + 0.5)
+        cot = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+        affine = torch.from_numpy(
+            rng.uniform(0.5, 1.5, (2, shape[1])).astype(np.float32))
+        for dtype, tol in ((torch.float32, BN_TOL),
+                           (torch.bfloat16, BF16_BN_TOL)):
+            out = []
+            for dev in (device, torch.device("cpu")):
+                bn = TrainableBatchNorm2d(shape[1]).to(dev)
+                with torch.no_grad():
+                    bn.weight.copy_(affine[0])
+                    bn.bias.copy_(affine[1])
+                xt = x.to(dev, dtype).requires_grad_(True)
+                y = bn(xt)
+                got = {"y": y.float(), "mean": bn.running_mean,
+                       "var": bn.running_var}
+                if dtype == torch.float32:
+                    (y * cot.to(dev)).sum().backward()
+                    got.update(dx=xt.grad, dw=bn.weight.grad,
+                               db=bn.bias.grad)
+                out.append({k: v.detach().cpu() for k, v in got.items()})
+            card, cpu = out
+            for k, w in cpu.items():
+                err = float((card[k] - w).abs().max()) / float(w.abs().max())
+                gate = tol if k == "y" else BN_TOL
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                if err > gate:
+                    raise AssertionError(f"phase 29: trainable BN {shape} "
+                                         f"{dtype} {k}: {err:.2e} > {gate}")
+    print(f"phase 29: trainable BN card vs CPU at {BN_SHAPES}: worst fp32 "
+          f"error {worst:.2e} of a tensor's largest entry (output, running "
+          f"stats, input/weight/bias gradients; tolerance {BN_TOL}; bf16 "
+          f"output {BF16_BN_TOL})", flush=True)
+
+
+def own_move(cfg, frames, labels, eps: float, base):
+    """The CPU's own move: the deterministic step of `cfg` on the CPU on
+    frames moved by eps relative, against `base`, its (stats, gradients)
+    on `frames`. Returns (the grad norm's relative move, each gradient
+    leaf's largest absolute move)."""
+    moved = (frames * (1 + eps * np.random.RandomState(SEED + 7).randn(
+        *frames.shape))).astype(np.float32)
+    ms, mg = train_step_on(cfg, torch.device("cpu"), moved, labels,
+                           True)[:2]
+    hs, hg = base
+    return (abs(ms["grad_norm"] - hs["grad_norm"]) / hs["grad_norm"],
+            {n: float((mg[n] - hg[n]).abs().max()) for n in hg})
+
+
+def worst_leaf(moves, grads):
+    """The largest of `moves` (by leaf) over its leaf's largest gradient
+    plus 1e-3 of the model's largest (phase 11's gradient scale), and its
+    leaf."""
+    gmax = max(float(g.abs().max()) for g in grads.values())
+    return max((moves[n] / (float(g.abs().max()) + 1e-3 * gmax), n)
+               for n, g in grads.items())
+
+
+SENS_SIZES = ((CMP_SIZE, CMP_BATCH), (CMP_SIZE, 4), (193, 2), (193, 4))
+
+
+def bn_sensitivity() -> int:
+    """--bn-sensitivity: the CPU's own move of an AOTT fp32 step with
+    MODEL_FREEZE_BN=False, T=CMP_T, at each of SENS_SIZES, for input moves
+    of SENS_EPS and SENS_EPS / 10, with ReLU6 as it is and as a smooth
+    clamp (softplus, beta 20), to see what its kinks do. Needs no card."""
+    import torch.nn.functional as F
+
+    torch.manual_seed(SEED)
+    cfg = train_cfg(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "build", "chip_smoke_sens"), "aott",
+                    TRAIN_LSTT_DROPPATH=0.0, TRAIN_TOTAL_STEPS=1000,
+                    MODEL_FREEZE_BN=False)
+    print(f"CPU, {torch.get_num_threads()} threads; AOTT fp32 trainable BN, "
+          f"T={CMP_T}, deterministic", flush=True)
+    relu6 = torch.nn.ReLU6.forward
+    for size, batch in SENS_SIZES:
+        data = EllipseClips(batch, CMP_T, size, 3)
+        frames = normalised_frames(
+            np.stack([c["frames"] for c in data.clips], axis=1))
+        labels = np.stack([c["labels"] for c in data.clips], axis=1)
+        for smooth in (False, True):
+            if smooth:
+                torch.nn.ReLU6.forward = lambda self, x: (
+                    F.softplus(x, beta=20) - F.softplus(x - 6, beta=20))
+            try:
+                base = train_step_on(cfg, torch.device("cpu"), frames,
+                                     labels, True)[:2]
+                for eps in (SENS_EPS, SENS_EPS / 10):
+                    norm, moves = own_move(cfg, frames, labels, eps, base)
+                    grad, leaf = worst_leaf(moves, base[1])
+                    print(f"{size}x{size} B={batch} eps {eps:g} "
+                          f"{'smooth clamp' if smooth else 'ReLU6       '}: "
+                          f"grad norm {norm:.2e}, worst leaf {grad:.2e} "
+                          f"({leaf})", flush=True)
+            finally:
+                torch.nn.ReLU6.forward = relu6
+    return 0
 
 
 def compare_train_step(device, model: str = "aott", dtype: str = "float32",
-                       phase: int = 11, **over):
-    """Phase 11 (AOTT, fp32) and 27 (AOTT at bf16, DeAOTT at fp32 and bf16):
+                       phase: int = 11, deterministic: bool = False, **over):
+    """Phase 11 (AOTT, fp32), 27 (AOTT at bf16, DeAOTT at fp32 and bf16)
+    and 29 (AOTT, fp32, MODEL_FREEZE_BN=False, float frames: BN weight
+    and bias among the gradients, the running stats within STATS_TOL of
+    each channel's spread, and the grad-norm and gradient gates raised to
+    twice the CPU's own move when its frames move by SENS_EPS, where that
+    is larger; entries whose CPU gradient is under twice their leaf's own
+    move get two LR units; PERF.md section 7 has the own move by size):
     one train step on the card and on the CPU from the same weights and
     batch, no id-shuffle difference (the same generator) and, for DeAOT, no
     dropout (deterministic: the card's and the CPU's generators draw other
@@ -1436,11 +1732,14 @@ def compare_train_step(device, model: str = "aott", dtype: str = "float32",
     cfg = train_cfg(root, model, TRAIN_DTYPE=dtype, TRAIN_LSTT_DROPPATH=0.0,
                     TRAIN_TOTAL_STEPS=1000, **over)
     bf16 = dtype == "bfloat16"
-    deterministic = cfg.MODEL_VOS == "deaot"
+    trainable = not cfg.MODEL_FREEZE_BN
+    deterministic = deterministic or cfg.MODEL_VOS == "deaot"
     data = EllipseClips(CMP_BATCH, CMP_T, CMP_SIZE, 3)
     frames = np.stack([c["frames"] for c in data.clips], axis=1)
     labels = np.stack([c["labels"] for c in data.clips], axis=1)
-    (cs, cg, cp), (hs, hg, hp) = (
+    if trainable:     # float frames, so that a copy can be moved a little
+        frames = normalised_frames(frames)
+    (cs, cg, cp, cb), (hs, hg, hp, hb) = (
         train_step_on(cfg, dev, frames, labels, deterministic)
         for dev in (device, torch.device("cpu")))
     exact = None
@@ -1455,6 +1754,21 @@ def compare_train_step(device, model: str = "aott", dtype: str = "float32",
     gmax = max(float(g.abs().max()) for g in hg.values())
     floor = 1e-6 * gmax
     label = f"{cfg.MODEL_NAME} {dtype}"
+    own_grad = own_norm = 0.0
+    own_abs = {}        # a leaf's largest own move, absolute
+    if trainable:
+        # the CPU's own step on frames moved by SENS_EPS relative: how far
+        # the function itself moves its gradients at rounding-sized input
+        # changes (with trainable BN at seeded weights, far beyond fp32's
+        # rounding of the step: a frozen-BN step moves < 1e-5 of the gate;
+        # PERF.md section 7)
+        own_norm, own_abs = own_move(cfg, frames, labels, SENS_EPS,
+                                     (hs, hg))
+        own_grad = worst_leaf(own_abs, hg)[0]
+        print(f"phase {phase}: {label}: the CPU's own step on frames moved "
+              f"by {SENS_EPS:g} relative moves the grad norm by "
+              f"{own_norm:.2e} relative and the worst gradient leaf by "
+              f"{own_grad:.2e} of its gate's scale", flush=True)
     if bf16:
         # a leaf's error over the larger of 5e-2 of its largest entry and
         # twice the CPU's bf16 error on it: <= 1 passes
@@ -1475,6 +1789,9 @@ def compare_train_step(device, model: str = "aott", dtype: str = "float32",
                        float(hg[n].abs().max()) / gmax, n) for n in hg),
                      reverse=True)
         grad_gate, loss_gate, param_gate = 1e-3, 1e-4, 0.25
+    # trainable BN: the function's own movement, twice, where it is larger
+    norm_gate = max(loss_gate, 2 * own_norm)
+    grad_gate = max(grad_gate, 2 * own_grad)
     grad_err = rel[0][0]
     for r, scale, n in rel[:3]:
         print(f"phase {phase}: {label} gradient {n}: "
@@ -1490,26 +1807,143 @@ def compare_train_step(device, model: str = "aott", dtype: str = "float32",
             param_err = max(param_err, float(beyond.max())
                             / max(float(p.abs().max()), 1e-30))
             continue
-        # in LR units, outside entries whose gradient is noise
+        # in LR units, outside entries whose gradient is noise (with
+        # trainable BN also those under twice their leaf's own move: the
+        # CPU's own step may flip their sign, and Adam's first updates
+        # then differ by 2 lr)
         noise = hg[n].abs() < floor if n in hg else torch.ones_like(
             p, dtype=torch.bool)
+        if n in own_abs:
+            noise |= hg[n].abs() < 2 * own_abs[n]
         err = (cp[n] - p).abs() / lr
         if bool((err[noise] > 2).any()):
             raise AssertionError(f"{n}: a noise entry moved > 2 LR units")
         param_err = max(param_err, float(err[~noise].max()) if
                         bool((~noise).any()) else 0.0)
+    stats_err = running_stats_err(cb, hb)
+    if stats_err > STATS_TOL:
+        raise AssertionError(f"running stats {label}: card vs CPU "
+                             f"{stats_err:.2e} > {STATS_TOL}")
     unit = ("beyond 2 LR units, of the leaf's largest entry" if bf16
             else "LR units")
     print(f"phase {phase}: {label} train step card vs CPU ({CMP_SIZE}x"
           f"{CMP_SIZE}, B={CMP_BATCH}, T={CMP_T}): loss {cs['loss']:.6f} vs "
           f"{hs['loss']:.6f} (rel err {loss_err:.2e}), grad_norm rel err "
           f"{norm_err:.2e}, worst gradient err {grad_err:.2e}, worst "
-          f"updated-parameter err {param_err:.3e} {unit} (tolerances "
-          f"{loss_gate}, {loss_gate}, {grad_gate}, {param_gate})", flush=True)
-    if not (loss_err <= loss_gate and norm_err <= loss_gate
+          f"updated-parameter err {param_err:.3e} {unit}, running stats "
+          f"err {stats_err:.2e} of a channel's spread (tolerances {loss_gate}, "
+          f"{norm_gate:.2e}, {grad_gate:.2e}, {param_gate}, {STATS_TOL})",
+          flush=True)
+    if not (loss_err <= loss_gate and norm_err <= norm_gate
             and grad_err <= grad_gate and param_err <= param_gate):
         raise AssertionError(f"train step {label}: card and CPU disagree")
     return loss_err, grad_err
+
+
+DP_RANKS = 2
+
+
+def dp_step(device, out: str, rows: slice):
+    """Phase 30: one deterministic fp32 train step of the seeded AOTT
+    (MODEL_FREEZE_BN=False, TF32 off) on `rows` of the 465x465 batch, on
+    `device`; a rank of a live process group averages its gradients and
+    stats with the others. Saves (loss and grad_norm, updated parameters,
+    running stats, gradients, this process's kernel launches) to `out`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_cfg(os.path.join(os.path.dirname(out), "cfg"), "aott",
+                    MODEL_FREEZE_BN=False, TRAIN_LSTT_DROPPATH=0.0,
+                    TRAIN_TOTAL_STEPS=TRAIN_SCHEDULE)
+    data = EllipseClips(TRAIN_BATCH, TRAIN_T, SIZE, TRAIN_OBJECTS)
+    frames = np.stack([c["frames"] for c in data.clips], axis=1)[:, rows]
+    labels = np.stack([c["labels"] for c in data.clips], axis=1)[:, rows]
+    kernels = kernel_counters()
+    reset_counts(kernels)
+    stats, grads, params, running = train_step_on(
+        cfg, device, frames, labels, True, TRAIN_OBJECTS)
+    torch.save((stats, params, running, grads, read_counts(kernels)), out)
+
+
+def dp_rank(device, root: str):
+    """A rank of phase 30's data-parallel step: its share of the batch."""
+    from aot_tpu_torch import parallel
+
+    r, share = parallel.rank(), TRAIN_BATCH // parallel.world_size()
+    dp_step(device, os.path.join(root, f"rank{r}.pt"),
+            slice(r * share, (r + 1) * share))
+
+
+def compare_dp_step(device, card: str):
+    """Phase 30: one step by one process at B=TRAIN_BATCH against one step
+    by DP_RANKS gloo ranks on the same card (NCCL refuses two ranks on one
+    device), each rank a spawned process with B/DP_RANKS clips: loss and
+    grad norm within 1e-5 relative, the running stats within STATS_TOL of
+    each channel's spread, every updated parameter within a quarter of one
+    LR unit (two where the gradient is fp32 noise or the two gradients
+    differ by more than half: Adam's first update is ~lr sign(g)); both
+    ranks hold the same model. Returns the launches of both runs by kernel
+    name."""
+    import shutil
+
+    from aot_tpu_torch import parallel
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dp_step(device, os.path.join(root, "single.pt"), slice(0, TRAIN_BATCH))
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    try:
+        parallel.launch(dp_rank, DP_RANKS, (root,),
+                        devices=[str(device)] * DP_RANKS)
+    except Exception as err:
+        print(f"phase 30: {DP_RANKS} gloo ranks on one card failed: {err!r}",
+              flush=True)
+        raise
+    t2 = time.perf_counter()
+    load = lambda name: torch.load(os.path.join(root, name),
+                                   weights_only=True)
+    s1, p1, b1, g1, k1 = load("single.pt")
+    ranks = [load(f"rank{r}.pt") for r in range(DP_RANKS)]
+    s2, p2, b2, _, _ = ranks[0]
+    loss_err = abs(s2["loss"] - s1["loss"]) / abs(s1["loss"])
+    norm_err = abs(s2["grad_norm"] - s1["grad_norm"]) / s1["grad_norm"]
+    same = all(torch.equal(p2[n], r[1][n]) for r in ranks[1:] for n in p2)
+    stats_err = running_stats_err(b2, b1)
+    cfg_lr = train_cfg(os.path.join(root, "cfg"), "aott").TRAIN_LR_MIN
+    gmax = max(float(g.abs().max()) for g in g1.values())
+    g2 = ranks[0][3]
+    param_err, flips = 0.0, 0
+    for n, p in p1.items():
+        loose = ((g1[n].abs() < 1e-6 * gmax)
+                 | ((g2[n] - g1[n]).abs() > 0.5 * g1[n].abs()))
+        err = (p2[n] - p).abs() / cfg_lr
+        if bool((err[loose] > 2).any()):
+            raise AssertionError(f"phase 30 {n}: an entry moved > 2 LR units")
+        flips += int(loose.sum())
+        if bool((~loose).any()):
+            param_err = max(param_err, float(err[~loose].max()))
+    print(f"phase 30: AOTT fp32 trainable BN, {SIZE}x{SIZE}, B={TRAIN_BATCH}, "
+          f"T={TRAIN_T}, deterministic: one process ({t1 - t0:.1f} s) vs "
+          f"{DP_RANKS} gloo ranks x B={TRAIN_BATCH // DP_RANKS} on one card "
+          f"({t2 - t1:.1f} s): loss {s2['loss']:.6f} vs {s1['loss']:.6f} (rel "
+          f"err {loss_err:.2e}), grad_norm rel err {norm_err:.2e}, running "
+          f"stats err {stats_err:.2e} of a channel's spread, worst parameter "
+          f"{param_err:.3f} LR units ({flips} entries at the 2-unit "
+          f"allowance), ranks identical: {same} (tolerances 1e-5, 1e-5, "
+          f"{STATS_TOL}, 0.25) ({card})", flush=True)
+    if not (loss_err <= 1e-5 and norm_err <= 1e-5 and stats_err <= STATS_TOL
+            and param_err <= 0.25 and same):
+        raise AssertionError("phase 30: the data-parallel step differs from "
+                             "the one-process step")
+    launches = dict(k1)
+    for r in ranks:
+        for k, n in r[4].items():
+            launches[k] += n
+    return launches
 
 
 def write_davis_full_res(root: str, seed: int, frames: int,
@@ -1845,9 +2279,10 @@ def profile_serving(card: str, model_name: str, batch: int = 1) -> int:
 
 
 def profile_training(card: str, model_name: str, dtype: str,
-                     batch: int) -> int:
-    """--profile-train MODEL [--dtype D] [--batch N]: where a training
-    step's time goes, at phase 10's, 25's or 26's configuration (B clips of
+                     batch: int, trainable_bn: bool = False) -> int:
+    """--profile-train MODEL [--dtype D] [--batch N] [--trainable-bn]: where
+    a training step's time goes, at phase 10's, 25's, 26's or (with
+    --trainable-bn, MODEL_FREEZE_BN=False) 28's configuration (B clips of
     TRAIN_T seeded frames at SIZE, per-frame recompute): 3 warm-up steps of
     the Trainer's train_step, 3 timed on the host clock (each ending in a
     synchronize), then 2 under torch.profiler: kernel ms and launches a
@@ -1861,7 +2296,8 @@ def profile_training(card: str, model_name: str, dtype: str,
                         "chip_smoke_profile_train")
     cfg = train_cfg(root, model_name, TRAIN_DTYPE=dtype,
                     TRAIN_BATCH_SIZE=batch, DATA_SEQ_LEN=TRAIN_T,
-                    TRAIN_TOTAL_STEPS=TRAIN_SCHEDULE)
+                    TRAIN_TOTAL_STEPS=TRAIN_SCHEDULE,
+                    MODEL_FREEZE_BN=not trainable_bn)
     device = torch.device("cuda", 0)
     trainer = Trainer(cfg, seed=SEED, device=device)
     data = EllipseClips(batch, TRAIN_T, SIZE, TRAIN_OBJECTS)
@@ -1890,7 +2326,8 @@ def profile_training(card: str, model_name: str, dtype: str,
                              ProfilerActivity.CUDA]) as prof:
         profiled = window(2)
     print(f"profile: {cfg.MODEL_NAME} training {SIZE}x{SIZE}, B={batch}, "
-          f"T={TRAIN_T}, {dtype}: median {host:.1f} ms a step over 3 steps "
+          f"T={TRAIN_T}, {dtype}, {'trainable' if trainable_bn else 'frozen'}"
+          f" BN: median {host:.1f} ms a step over 3 steps "
           f"after 3 warm-up, {profiled:.1f} under the profiler over the next "
           f"2; peak memory {peak:.2f} GiB ({card})", flush=True)
     kernel = print_profile(prof, 2, f"{cfg.MODEL_NAME} {dtype}", "step")
@@ -2440,18 +2877,25 @@ def main() -> int:
                              "r50_deaotl) instead of running the phases")
     parser.add_argument("--dtype", default="bfloat16",
                         help="with --profile-train: TRAIN_DTYPE")
+    parser.add_argument("--trainable-bn", action="store_true",
+                        help="with --profile-train: MODEL_FREEZE_BN=False")
+    parser.add_argument("--bn-sensitivity", action="store_true",
+                        help="print the CPU's own move of a trainable-BN "
+                             "train step by size (phase 29's gate) instead "
+                             "of running the phases; needs no card")
     parser.add_argument("--batch", type=int, default=None,
                         help="with --profile-serve: N videos a step "
                              "(step_videos, default 1); with "
                              "--profile-train: clips a step (default "
                              f"{TRAIN_BATCH})")
     args = parser.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.bn_sensitivity:
+        return bn_sensitivity()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this check runs on the "
               "card only", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import importlib
 
     from aot_tpu_torch.configs import build_config
     from aot_tpu_torch.ops.kernels import _build
@@ -2459,9 +2903,7 @@ def main() -> int:
     from aot_tpu_torch.ops.kernels import flash_attn_bwd as fab
     from aot_tpu_torch.ops.kernels import local_window_attn as lwa
 
-    kernels = {name: (importlib.import_module(
-        f"aot_tpu_torch.ops.kernels.{mod}"), attr)
-        for name, (mod, attr, _, _) in KERNELS.items()}
+    kernels = kernel_counters()
     sources = list(dict.fromkeys(src for *_, src in KERNELS.values()))
     start = time.perf_counter()
 
@@ -2480,7 +2922,7 @@ def main() -> int:
         return profile_serving(card, args.profile_serve, args.batch or 1)
     if args.profile_train:
         return profile_training(card, args.profile_train, args.dtype,
-                                args.batch or TRAIN_BATCH)
+                                args.batch or TRAIN_BATCH, args.trainable_bn)
 
     # phase 1
     t0 = time.perf_counter()
@@ -2531,7 +2973,7 @@ def main() -> int:
           flush=True)
 
     # phases 10, 11
-    for k, n in run_training(kernels, device, card).items():
+    for k, n in run_training(kernels, device, card)[0].items():
         total[k] += n
     compare_train_step(device)
     print(f"phases 10, 11 done at {time.perf_counter() - start:.1f} s",
@@ -2581,18 +3023,42 @@ def main() -> int:
           flush=True)
 
     # phases 25-27: training at the configs' dtype, bf16, and DeAOT training
+    frozen_run = None     # phase 26's (ms/step, peak GiB), beside 28's
     for part in (run_training(kernels, device, card, 25, "aott", "bfloat16"),
                  run_training(kernels, device, card, 26, "r50_deaotl",
                               "bfloat16", DEAOT_TRAIN_BATCH,
                               DEAOT_TRAIN_STEPS)):
-        for k, n in part.items():
+        for k, n in part[0].items():
             total[k] += n
+        frozen_run = part[1:]
     compare_train_step(device, "aott", "bfloat16", 27)
     compare_train_step(device, "deaott", "float32", 27,
                        TRAIN_LONG_TERM_MEM_GAP=1)
     compare_train_step(device, "deaott", "bfloat16", 27,
                        TRAIN_LONG_TERM_MEM_GAP=1)
     print(f"phases 25-27 done at {time.perf_counter() - start:.1f} s",
+          flush=True)
+
+    # phases 28-30: data-parallel training with trainable BN
+    launches, ms, peak = run_training(
+        kernels, device, card, 28, "r50_deaotl", "bfloat16",
+        DEAOT_TRAIN_BATCH, DEAOT_TRAIN_STEPS, nccl=True,
+        after=lambda trainer, cfg: trainable_bn_checks(trainer, cfg,
+                                                       kernels),
+        MODEL_FREEZE_BN=False, TRAIN_TBLOG_STEP=5)
+    for k, n in launches.items():
+        total[k] += n
+    print(f"phase 28: R50_DeAOTL bf16 B={DEAOT_TRAIN_BATCH} with trainable "
+          f"BN (NCCL, world size 1) {ms:.1f} ms/step, peak {peak:.2f} GiB, "
+          f"against phase 26's frozen BN {frozen_run[0]:.1f} ms/step, "
+          f"{frozen_run[1]:.2f} GiB in this call: {ms / frozen_run[0]:.3f}x "
+          f"the time, +{peak - frozen_run[1]:.2f} GiB ({card})", flush=True)
+    compare_trainable_bn(device)
+    compare_train_step(device, "aott", "float32", 29, deterministic=True,
+                       MODEL_FREEZE_BN=False)
+    for k, n in compare_dp_step(device, card).items():
+        total[k] += n
+    print(f"phases 28-30 done at {time.perf_counter() - start:.1f} s",
           flush=True)
     unused = [name for name, n in total.items() if n == 0]
     if unused:

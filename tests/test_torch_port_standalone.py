@@ -37,7 +37,7 @@ COPIES = ["configs/config.py", "configs/models.py", "configs/stages.py",
           "data/__init__.py", "data/loader.py", "data/image_aug.py",
           "data/video_aug.py", "data/native_aug.py", "data/train_datasets.py",
           "data/eval_datasets.py", "native/augkit.cpp", "utils/image.py",
-          "utils/eval_pack.py", "eval/metrics.py"]
+          "utils/eval_pack.py", "utils/meters.py", "eval/metrics.py"]
 
 
 def _as_port(src: str) -> str:

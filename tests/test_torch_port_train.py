@@ -441,9 +441,14 @@ def test_trainer_two_steps_checkpoint_and_auto_resume(tmp_path):
     (["--fp32", "--gpu_num", "2"], "MESH_DP_SIZE=2"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, match):
+    """Data parallelism is ported: `--gpu_num 2` without `--device cpu`
+    asks for two cards and, with fewer, raises before starting a rank
+    (never moving to the CPU)."""
     from aot_tpu_torch.train.__main__ import main
 
-    base = ["--stage", "pre_ytb_dav", "--datasets", "test", "--device", "cpu",
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA cards are present: the ranks would start")
+    base = ["--stage", "pre_ytb_dav", "--datasets", "test",
             "--set", f"DIR_ROOT={str(tmp_path)!r}"]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(RuntimeError, match=match + ": no CUDA device"):
         main(base + argv)
