@@ -16,6 +16,7 @@ import torch
 
 from aot_tpu_torch.engine import state as S
 from aot_tpu_torch.engine.engine import VOSEngine
+from aot_tpu_torch.ops.attention import set_attn_impl, set_attn_thresholds
 from aot_tpu_torch.ops.image import (interpolate_bilinear, nearest_labels,
                                      upsample_argmax)
 
@@ -96,7 +97,14 @@ def _expand_groups(state: S.EngineState, new_g: int) -> S.EngineState:
 def build_infer_engine(model, cfg, aggregation: str = "soft"
                        ) -> "VOSInferEngine":
     """The eval engine from a Config (reference:
-    networks/engines/__init__.py:5-21)."""
+    networks/engines/__init__.py:5-21). Applies the config's attention
+    knobs first, as aot_tpu/engine/infer.py:107-113 does: ATTN_IMPL and the
+    three ATTN_* thresholds (None keeps one), process-wide."""
+    set_attn_impl(cfg.get("ATTN_IMPL", "auto"))
+    set_attn_thresholds(
+        flash_min_keys_bf16=cfg.get("ATTN_FLASH_MIN_KEYS_BF16"),
+        flash_min_keys_fp32=cfg.get("ATTN_FLASH_MIN_KEYS_FP32"),
+        dense_local_max_tokens=cfg.get("ATTN_DENSE_LOCAL_MAX_TOKENS"))
     eng = VOSEngine(
         model,
         max_obj_num=cfg.MODEL_MAX_OBJ_NUM,

@@ -20,6 +20,19 @@ CUDA, both plain versions on the CPU) and local attention the window form
 (`local_attention_window`, the JAX package's training formulation), which
 autograd differentiates.
 
+The knobs are the JAX package's (aot_tpu/ops/attention.py:72-104,
+:305-306), with "the TPU" read as "a CUDA tensor": `set_attn_impl`
+('auto', 'xla', 'reference', 'window', 'pallas'; build_infer_engine applies
+the config's ATTN_IMPL) and `set_attn_thresholds` (the ATTN_* config keys),
+whose defaults the AOT_TPU_FLASH_MIN_KEYS_BF16, AOT_TPU_FLASH_MIN_KEYS_FP32
+and AOT_TPU_DENSE_LOCAL_MAX_TOKENS environment variables set at import.
+'auto' is the routing above. 'xla' and 'reference' never take the flash
+path, in training too, and serve local reads with the plain version (no
+kernel launch on any device); 'window' serves local reads with
+`local_attention_window`; 'pallas' takes the flash path for every global
+read and the local kernel for every dilation-1 local read of a CUDA
+tensor at any size.
+
 Layouts: sequences are (B, L, C).
 """
 
@@ -27,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
 from typing import Optional, Tuple, Union
 
 import torch
@@ -41,9 +55,11 @@ NEG_INF = -1e30
 # to the flash kernel: the JAX package's defaults for fp32 and bf16
 # operands (aot_tpu/ops/attention.py:79-81), TPU v5e measurements, not yet
 # measured on this card (ROADMAP). At bf16, AOTT's capped 8-frame ring
-# (7,200 keys) takes flash on every step; at fp32 it never does.
-FLASH_MIN_KEYS = 8192
-FLASH_MIN_KEYS_BF16 = 4096
+# (7,200 keys) takes flash on every step; at fp32 it never does. Read at
+# every call: `set_attn_thresholds` (the ATTN_FLASH_MIN_KEYS_* config keys)
+# or the environment variables at import move them.
+FLASH_MIN_KEYS = int(os.environ.get("AOT_TPU_FLASH_MIN_KEYS_FP32", 8192))
+FLASH_MIN_KEYS_BF16 = int(os.environ.get("AOT_TPU_FLASH_MIN_KEYS_BF16", 4096))
 
 # Query tokens above which a dilation-1 local read takes the wide route:
 # the JAX package's crossover between its flat and wide kernels,
@@ -54,7 +70,40 @@ FLASH_MIN_KEYS_BF16 = 4096
 # threshold replaces it (ROADMAP). 2,442 tokens (YouTube-VOS 720p at the
 # default resolution) stay on the flat route; 3,268 (720p at
 # --max_resolution 720) and 7,232 (DAVIS 1080p) take the wide one.
-DENSE_LOCAL_MAX_TOKENS = 2500
+DENSE_LOCAL_MAX_TOKENS = int(os.environ.get("AOT_TPU_DENSE_LOCAL_MAX_TOKENS",
+                                            2500))
+
+# The dispatch mode (set_attn_impl; the config's ATTN_IMPL)
+ATTN_IMPLS = ("auto", "xla", "reference", "window", "pallas")
+_ATTN_IMPL = "auto"
+
+
+def set_attn_impl(impl: str) -> str:
+    """Set the dispatch mode (one of ATTN_IMPLS); returns the previous one,
+    for restore (aot_tpu/ops/attention.py:98)."""
+    global _ATTN_IMPL
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"ATTN_IMPL {impl!r}: one of {ATTN_IMPLS}")
+    prev, _ATTN_IMPL = _ATTN_IMPL, impl
+    return prev
+
+
+def attn_impl() -> str:
+    return _ATTN_IMPL
+
+
+def set_attn_thresholds(flash_min_keys_bf16=None, flash_min_keys_fp32=None,
+                        dense_local_max_tokens=None) -> None:
+    """Override the 'auto' dispatch crossovers; None keeps one
+    (aot_tpu/ops/attention.py:87)."""
+    global FLASH_MIN_KEYS_BF16, FLASH_MIN_KEYS, DENSE_LOCAL_MAX_TOKENS
+    if flash_min_keys_bf16 is not None:
+        FLASH_MIN_KEYS_BF16 = int(flash_min_keys_bf16)
+    if flash_min_keys_fp32 is not None:
+        FLASH_MIN_KEYS = int(flash_min_keys_fp32)
+    if dense_local_max_tokens is not None:
+        DENSE_LOCAL_MAX_TOKENS = int(dense_local_max_tokens)
+
 
 # max score-tensor elements before queries are chunked (~256 MB fp32)
 _SCORE_BUDGET = 64 * 1024 * 1024
@@ -129,14 +178,18 @@ def in_training() -> bool:
 def use_flash(lk: int, valid_len, top_k: int, max_mem_len_ratio: float,
               dtype: torch.dtype = torch.float32) -> bool:
     """The dispatch rule of aot_tpu/ops/attention.py:128 `_use_flash`:
-    neither top-k filtering nor the memory-length rescale (those stay on the
-    dense path), and then, in training, every read; at serving, a read of a
+    never under ATTN_IMPL 'xla' or 'reference'; neither top-k filtering nor
+    the memory-length rescale (those stay on the dense path); then, in
+    training or under 'pallas', every read; otherwise a read of a
     live-length masked memory (`valid_len` given) of at least
     FLASH_MIN_KEYS_BF16 keys for bf16 operands (`dtype`, k's), else
-    FLASH_MIN_KEYS."""
+    FLASH_MIN_KEYS. A CPU tensor that takes it runs the flash path's plain
+    version (the same function)."""
+    if _ATTN_IMPL in ("xla", "reference"):
+        return False
     if top_k > 0 or max_mem_len_ratio > 0:
         return False
-    if in_training():
+    if in_training() or _ATTN_IMPL == "pallas":
         return True
     least = FLASH_MIN_KEYS_BF16 if dtype == torch.bfloat16 else FLASH_MIN_KEYS
     return valid_len is not None and lk >= least
@@ -220,16 +273,18 @@ def relative_emb_from_q(q: torch.Tensor, weight: torch.Tensor,
 
 def local_route(tokens: int, device_type: str, dilation: int,
                 training: bool) -> str:
-    """Which implementation serves a local read of `tokens` query tokens:
-    'window' (training on any device: `local_attention_window`), 'plain'
-    (every other CPU tensor: the kernel's plain version), 'flat' or 'wide'
+    """Which implementation serves a local read of `tokens` query tokens
+    (aot_tpu/ops/attention.py:323-400 `_use_local_kernel`,
+    `local_attention`): 'window' (training on any device, or ATTN_IMPL
+    'window': `local_attention_window`), 'plain' (a CPU tensor, or ATTN_IMPL
+    'xla' or 'reference': the kernel's plain version), 'flat' or 'wide'
     (the CUDA kernel's two wrappers, at dilation 1, split at
     DENSE_LOCAL_MAX_TOKENS as aot_tpu/ops/attention.py:376-383 splits the
-    TPU kernels), or 'none' (a card tensor at another dilation: no kernel
-    serves it)."""
-    if training:
+    TPU kernels; 'auto' and 'pallas'), or 'none' (a card tensor at another
+    dilation: no kernel serves it)."""
+    if training or _ATTN_IMPL == "window":
         return "window"
-    if device_type == "cpu":
+    if device_type == "cpu" or _ATTN_IMPL in ("xla", "reference"):
         return "plain"
     if dilation != 1:
         return "none"
@@ -335,7 +390,8 @@ def local_attention(
     the CUDA kernel has no backward. Otherwise a CPU tensor takes the
     kernel's plain version; a CUDA tensor at dilation 1 the kernel, through
     the flat route's wrapper up to DENSE_LOCAL_MAX_TOKENS query tokens and
-    the wide route's above. Anything else raises.
+    the wide route's above (ATTN_IMPL 'window', 'xla' and 'reference' move
+    a read to the window form or the plain version). Anything else raises.
     """
     kw = dict(num_heads=num_heads, size_2d=tuple(size_2d), max_dis=max_dis,
               d_att=d_att)

@@ -34,6 +34,7 @@ beyond it, or beyond Lk, are dead.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple, Union
 
@@ -135,7 +136,12 @@ def _splits(blocks: int, slots: int, most: int) -> int:
 
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of the card (132 on an H100 SXM)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_count(torch.device(device).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def slab_rows(bh: int, lq: int, lk: int) -> int:

@@ -11,10 +11,16 @@ point with what the forward saved.
                              raises — there is no fallback
   flash_attention_bwd_cuda   the kernel wrapper (counts LAUNCHES, or
                              BF16_LAUNCHES for bf16: one per call, which
-                             runs the dQ kernel, then the dK and dV kernel,
-                             or for dv > 32, slab by slab, the products of
-                             dK and dV from the P and dS it kept)
+                             runs D and the packing of the operands, then
+                             for d, dv <= 32 the dQ kernel and the dK and
+                             dV kernel, or above, slab by slab, the scores
+                             kernel (P and dS kept) and the products of dV,
+                             dK and dQ from them)
   flash_attention_bwd_plain  the same function in plain PyTorch
+  launch_plan                the launch plan and the workspace size, as
+                             csrc/flash_attn_bwd_plan.h fills them (the CPU
+                             tests build that header alone:
+                             tests/test_torch_port_flash_bwd_plan.py)
 
 All three take q, k, v (B, L, h*d / h*dv), valid_len (None, an int or a (B,)
 int tensor), the forward's out (B, Lq, h*dv) and lse (B*h, Lq, fp32), and
@@ -31,6 +37,7 @@ gradients rounded to bf16 once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -46,7 +53,6 @@ from aot_tpu_torch.ops.kernels.flash_attn import (NEG_INF, ValidLen, _check,
 LAUNCHES = 0
 BF16_LAUNCHES = 0
 
-_TILE = 64            # csrc/flash_attn_bwd.cu kT
 _ENTRY = {torch.float32: "flash_attn_bwd", torch.bfloat16: "flash_attn_bwd_bf16"}
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -101,37 +107,50 @@ def flash_attention_bwd_plain(
             merge(p.transpose(-1, -2) @ doh, lk, v))
 
 
-def scratch_plan(b: int, lq: int, lk: int, num_heads: int, dv: int,
-                 d: int = 0, dtype: torch.dtype = torch.float32
-                 ) -> Tuple[int, int]:
-    """(slab, scratch floats) of the backward. For dv <= 32 (AOT's heads)
-    the key-tile kernel computes dK and dV together: (0, 0). Wider, two
-    passes over slabs of query rows (flash_attn.slab_rows): the dQ kernel
-    keeps the slab's P and dS of every (query, key) (B*h*slab rows of Lk
-    rounded up to 32 elements each, in `dtype`), so dV and dK need no
-    recompute of S and dP (csrc/flash_attn_bwd.cu grad_t_kernel). At bf16
-    over more than one slab, dV and dK are summed over the slabs in fp32
-    (B*Lk*h*(dv + d) floats more)."""
-    if dv <= 32:
-        return 0, 0
-    slab = flash_attn.slab_rows(b * num_heads, lq, lk)
-    kept = 2 * b * num_heads * slab * (-(-lk // 32) * 32)
-    if dtype == torch.float32:
-        return slab, kept
-    return slab, kept // 2 + (b * lk * num_heads * (dv + d) if lq > slab
-                              else 0)
+# The plan's inputs, in the order of csrc/flash_attn_bwd_plan.h's PlanField
+# (q, k, v and out's batch and row strides in elements); the library fills
+# the rest of the plan and sizes the workspace: that header alone owns the
+# plan
+PLAN_FIELDS = ("B", "H", "LQ", "LK", "D", "DV", "VALID_ALL", "Q_SB", "Q_SL",
+               "K_SB", "K_SL", "V_SB", "V_SL", "OUT_SB", "OUT_SL")
+# ... and what it fills after them (plan_value reads them)
+PLAN_OUTPUTS = ("FORM", "SPLITS", "SLAB", "GROUPS", "DQ_PART", "ACC", "DELTA",
+                "WORKSPACE")
 
 
-def _entry(dtype: torch.dtype):
-    """The kernels' instantiation for q/k/v/dout and gradients of `dtype`."""
-    fn = getattr(_build.load("flash_attn_bwd"), _ENTRY[dtype])
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 8
-                       + [ctypes.c_longlong] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attn_bwd")
+    if lib.flash_attn_bwd_plan.argtypes is None:
+        lib.flash_attn_bwd_plan.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_longlong]
+        lib.flash_attn_bwd_plan.restype = ctypes.c_longlong
+        for entry in _ENTRY.values():
+            fn = getattr(lib, entry)
+            fn.argtypes = ([ctypes.c_void_p] * 12
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(inputs: Tuple[int, ...], dtype: torch.dtype,
+                sms: int) -> Tuple[ctypes.Array, int]:
+    """(the C entries' `plan` argument, the workspace bytes) for `inputs`
+    (PLAN_FIELDS' values) with q, k, v of `dtype` on a card of `sms`
+    multiprocessors, as csrc/flash_attn_bwd_plan.h fills them; made once a
+    shape."""
+    lib = _lib()
+    plan = (ctypes.c_longlong * lib.flash_attn_bwd_plan_len())(*inputs)
+    work = lib.flash_attn_bwd_plan(plan, int(dtype == torch.bfloat16), sms,
+                                   flash_attn.SLAB_FLOATS)
+    if work < 0:
+        raise ValueError(f"flash_attn_bwd_plan takes no plan for {inputs}")
+    return plan, work
+
+
+def plan_value(plan: ctypes.Array, name: str) -> int:
+    """One field the library filled (PLAN_OUTPUTS), e.g. "SLAB"."""
+    return plan[len(PLAN_FIELDS) + PLAN_OUTPUTS.index(name)]
 
 
 def flash_attention_bwd_cuda(
@@ -188,27 +207,19 @@ def flash_attention_bwd_cuda(
     elif valid_len is not None:
         valid_all = max(0, min(int(valid_len), lk))
 
-    delta = _delta(out, dout, h).contiguous()
-    slab, floats = scratch_plan(b, lq, lk, h, dv, d, dt)
-    scratch = (torch.empty(floats, device=dev, dtype=torch.float32)
-               if floats else None)
-    # the dQ kernel's key loop split to fill two blocks a multiprocessor
-    rows = min(slab, lq) if slab else lq
-    splits = flash_attn._splits(b * h * -(-rows // _TILE),
-                                2 * flash_attn.sm_count(dev), -(-lk // _TILE))
-    dq_part = (torch.empty((splits, b, lq, h * d), device=dev,
-                           dtype=torch.float32) if splits > 1 else None)
+    plan, work_bytes = launch_plan(
+        (b, h, lq, lk, d, dv, valid_all, q.stride(0), q.stride(1),
+         k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.stride(0),
+         out.stride(1)), dt, flash_attn.sm_count(dev))
+    work = torch.empty(work_bytes, device=dev, dtype=torch.uint8)
     dq = torch.empty((b, lq, h * d), device=dev, dtype=dt)
     dk = torch.empty((b, lk, h * d), device=dev, dtype=dt)
     dv_ = torch.empty((b, lk, h * dv), device=dev, dtype=dt)
-    err = _entry(dt)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv_.data_ptr(), None if dq_part is None else dq_part.data_ptr(),
-        splits, None if scratch is None else scratch.data_ptr(), slab, b, h,
-        lq, lk, d, dv, valid_all,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), 1.0 / math.sqrt(d),
+    err = getattr(_lib(), _ENTRY[dt])(
+        plan, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr,
+        dout.data_ptr(), lse.data_ptr(), out.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(),
+        dv_.data_ptr(), work.data_ptr(), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(

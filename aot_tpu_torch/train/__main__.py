@@ -1,5 +1,6 @@
 """Training CLI of the port: `python -m aot_tpu_torch.train` (the arguments
-of tools/train.py, plus --device and --dist_url).
+of tools/train.py, --max_id_num and --amp included, plus --device and
+--dist_url).
 
     python -m aot_tpu_torch.train --stage pre_ytb_dav --model aott \\
         --gpu_num 4 --batch_size 16 --total_steps 100000 \\
@@ -37,6 +38,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--pretrained_path", type=str, default="")
     parser.add_argument("--datasets", nargs="+", default=[])
     parser.add_argument("--data_workers", type=int, default=-1)
+    parser.add_argument("--max_id_num", type=int, default=-1,
+                        help="MODEL_MAX_OBJ_NUM (when > 0)")
+    parser.add_argument("--amp", action="store_true",
+                        help="accepted for tools/train.py's argument "
+                             "surface; no effect (bf16 is the config's "
+                             "TRAIN_DTYPE, --fp32 the way out)")
     parser.add_argument("--fp32", action="store_true",
                         help="train in float32 (default: the config's "
                              "TRAIN_DTYPE, bfloat16)")
@@ -59,9 +66,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def config_overrides(args: argparse.Namespace) -> dict:
+    """The config keys the arguments set, as tools/train.py:38-64 sets
+    them."""
     over = {}
     if args.gpu_num > 0:
         over["MESH_DP_SIZE"] = args.gpu_num
+        over["TRAIN_GPUS"] = args.gpu_num
     if args.batch_size > 0:
         over["TRAIN_BATCH_SIZE"] = args.batch_size
     if args.total_steps > 0:
@@ -75,6 +85,8 @@ def config_overrides(args: argparse.Namespace) -> dict:
         over["DATASETS"] = args.datasets
     if args.data_workers >= 0:
         over["DATA_WORKERS"] = args.data_workers
+    if args.max_id_num > 0:
+        over["MODEL_MAX_OBJ_NUM"] = args.max_id_num
     if args.fp32:
         over["TRAIN_DTYPE"] = "float32"
     if args.log_step > 0:

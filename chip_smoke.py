@@ -9,15 +9,18 @@ PyTorch built for CUDA:
     python3 chip_smoke.py --profile-serve MODEL [--batch N]
     python3 chip_smoke.py --profile-train MODEL [--dtype D] [--batch N]
                           [--trainable-bn]
+    python3 chip_smoke.py --profile-bwd
 
 The second form profiles phase 12's evaluation and runs nothing else
 (`profile_full_res_eval`); the third profiles a model's serving path, as
 phases 6, 14 and 16 run it (with --batch N: N videos a step, as phase 21),
 before and after the flash switch (`profile_serving`); the fourth a
-training step, as phases 10, 25, 26 and 28 run it (`profile_training`).
+training step, as phases 10, 25, 26 and 28 run it (`profile_training`); the
+fifth the flash backward's kernels one by one at phase 9's and 24's shapes
+(`profile_bwd`).
 
 Phases (2, 3, 8, 9, 19, 23 and 24, the kernel checks, run first, then 4
-to 7, then 10 to 18, then 20 to 22, then 25 to 30); any failure raises and
+to 7, then 10 to 18, then 20 to 22, then 25 to 31); any failure raises and
 the exit code is non-zero:
   0. refuse to run without a card; print the card's name and power limit
      (nvidia-smi) and the torch/CUDA versions; TF32 off for matmuls and
@@ -77,10 +80,12 @@ the exit code is non-zero:
      partial (B,) live length), the hw_check shape (B=2, Lk=7,200, live
      [7200, 4320]), DeAOTL's LT shape (h=1, d=128, dv=1024) at Lk=9,000
      and 19,800 and near-flat at 19,800, at 1080p (Lq=7,232, Lk=14,464:
-     two query slabs), B=2 with one element's keys all dead (zero
-     gradients there), d=dv=64 (two passes), and a row with no live key at
-     AOT's heads; a second run of each must give the same bits (no
-     atomics).
+     two query slabs), DeAOT's GPM self-attention (B=16, h=1, d=128,
+     dv=1024, Lq=Lk=900), B=2 with one element's keys all dead (zero
+     gradients there), d=dv=64 (two passes), a row with no live key at
+     AOT's heads and AOT's heads with live lengths (997, 613) that are no
+     multiple of any tile; exact zeros beyond each live length; a second
+     run of each must give the same bits (no atomics).
   9. backward kernel and plain times, as 3, at AOTT's training shape and
      DeAOTL's LT shape (Lk=19,800 at Lq=900, and 14,464 at 1080p), each
      beside the autograd backward of F.scaled_dot_product_attention (the
@@ -153,7 +158,8 @@ the exit code is non-zero:
      F.scaled_dot_product_attention (its backend named; the DeAOT local
      head with the dense window bias) and the bound at the bf16 rate
      (max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s)); at B = 4 also the fp32
-     kernels, checked and timed.
+     kernels, checked and timed, and at DeAOT's local head fp32
+     F.scaled_dot_product_attention with the fp32 dense window bias.
  20. bf16 serving (TEST_DTYPE=bfloat16): AOTT and DeAOTL as 4 and 6 on the
      same clip, ms/frame (median, p90) beside this call's fp32 runs, masks
      against the fp32 runs' (mean >= 99.5%, worst frame >= 99.0%),
@@ -179,7 +185,9 @@ the exit code is non-zero:
      (h=1, d=128, dv=1024: the GPM self-attention at Lq=Lk=900, the LT read
      at Lk=2,700, all live and partial), B=2 with one element's keys all
      dead, DeAOT's head at 1080p (two query slabs: dV and dK summed over
-     them in fp32) and a row with no live key at AOT's heads; exact zeros
+     them in fp32), a row with no live key at AOT's heads, AOT's heads
+     with live lengths (997, 613) that are no multiple of any tile and
+     d=dv=64 (two passes, output tiles wider than the heads); exact zeros
      beyond each live length, a second run bit-identical.
  24. the bf16 backward timed as 9 at the training paths' shapes (AOTT's,
      DeAOT's self-attention and LT read at B=16) beside its bf16 plain
@@ -230,7 +238,17 @@ the exit code is non-zero:
      stats within 1e-5 of each channel's spread, the updated parameters
      within a quarter of one LR unit (two where Adam's first update may
      flip), the ranks' models identical.
- 31. one JSON line with the kernels (the bf16 instantiations as entries of
+ 31. the attention knobs on the card (ops.attention.set_attn_impl through
+     the config's ATTN_IMPL, applied by build_infer_engine): AOTT at
+     465x465, the reference frame and KNOB_STEPS steps under each of
+     'auto', 'reference' and 'pallas'; launches asserted as the modes
+     route them: 'auto' the flat local kernel on every LSTT forward and no
+     flash launch (900 LT keys), 'reference' no kernel launch at all,
+     'pallas' the local kernel as 'auto' and the flash forward on both
+     global reads of every forward (the self-attention and the LT read,
+     900 keys each); each mode's masks against 'auto's (>= 99.9%). The
+     mode is set back to 'auto'.
+ 32. one JSON line with the kernels (the bf16 instantiations as entries of
      their own; launches summed over the main paths; each kernel's time,
      plain time, bound and library time at its main shape), the card line,
      and last the result line {"ok": true, "device": {...}}; every kernel
@@ -1056,6 +1074,16 @@ def run_variants(kernels, device, card: str, video, mask,
     return total
 
 
+def bwd_slab(b, lq, lk, h, d, dv, dtype, device):
+    """Query rows a slab of the flash backward's two-pass form (0: one
+    pass), as the library plans it for this shape."""
+    from aot_tpu_torch.ops.kernels import flash_attn as fa
+    from aot_tpu_torch.ops.kernels import flash_attn_bwd as fab
+    plan, _ = fab.launch_plan((b, h, lq, lk, d, dv, lk) + (0,) * 8, dtype,
+                              fa.sm_count(device))
+    return fab.plan_value(plan, "SLAB")
+
+
 def check_bwd_numerics(fa, fab, device):
     """Phase 8: the backward kernels vs their plain version, gated on the
     error relative to each gradient's largest entry. Returns the worst
@@ -1073,6 +1101,8 @@ def check_bwd_numerics(fa, fab, device):
         ("deaotl_b2_empty", 2, 900, 9000, 1, 128, 1024, [6300, 0], 1.0),
         ("d64_dv64", 2, 300, 1000, 2, 64, 64, [1000, 700], 1.0),
         ("empty_row", 2, 130, 200, 2, 32, 32, [200, 0], 1.0),
+        ("deaot_self", 16, 900, 900, 1, 128, 1024, None, 1.0),
+        ("aott_partial_tile", 2, 333, 1000, 8, 32, 32, [997, 613], 1.0),
     ]
     worst = 0.0
     for name, b, lq, lk, h, d, dv, valid, q_scale in cases:
@@ -1081,7 +1111,7 @@ def check_bwd_numerics(fa, fab, device):
         out, lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
         dout = torch.tensor(rng.randn(b, lq, h * dv), dtype=torch.float32,
                             device=device)
-        slab = fab.scratch_plan(b, lq, lk, h, dv)[0]
+        slab = bwd_slab(b, lq, lk, h, d, dv, torch.float32, device)
         if name.endswith("_two_slabs") and -(-lq // slab) != 2:
             raise AssertionError(f"{name}: slab {slab} of {lq} rows")
         got = fab.flash_attention_bwd_cuda(q, k, v, vl, out, lse, dout, h, d)
@@ -1098,15 +1128,19 @@ def check_bwd_numerics(fa, fab, device):
                 raise AssertionError(f"{name}: non-finite gradient")
             errs.append((g - w).abs().max().item())
             rels.append(errs[-1] / max(w.abs().max().item(), 1e-30))
-        if (isinstance(valid, list) and valid[-1] == 0
-                and any(bool(g[-1].any()) for g in got)):
-            raise AssertionError(f"{name}: a row with no live key has "
-                                 "non-zero gradients")
+        for i, n in enumerate(valid if isinstance(valid, list) else []):
+            if bool(got[1][i, n:].any()) or bool(got[2][i, n:].any()):
+                raise AssertionError(f"{name}: element {i} has non-zero "
+                                     "dk/dv beyond its live keys")
+            if n == 0 and bool(got[0][i].any()):
+                raise AssertionError(f"{name}: element {i} has no live key "
+                                     "and non-zero dq")
         print(f"phase 8: flash_attn_bwd {name} B={b} Lq={lq} Lk={lk} h={h} "
               f"d={d} dv={dv} q_scale={q_scale}: max_abs_err (dq, dk, dv) "
               f"{errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e}; / max|grad| "
               f"{rels[0]:.3e} {rels[1]:.3e} {rels[2]:.3e} (tolerance "
-              f"{BWD_TOL}); a second run bit-identical", flush=True)
+              f"{BWD_TOL}); dead keys exact zeros; a second run "
+              "bit-identical", flush=True)
         if not max(rels) <= BWD_TOL:
             raise AssertionError(f"{name}: kernel vs plain {rels} > {BWD_TOL}")
         worst = max(worst, max(errs))
@@ -1193,13 +1227,15 @@ def check_bf16_bwd(fa, fab, device):
         ("deaot_b2_empty", 2, 900, 2700, 1, 128, 1024, [1800, 0]),
         ("deaot_1080p_two_slabs", 1, 7232, 14464, 1, 128, 1024, None),
         ("empty_row", 2, 130, 200, 2, 32, 32, [200, 0]),
+        ("aott_partial_tile", 2, 333, 1000, 8, 32, 32, [997, 613]),
+        ("d64_dv64", 2, 300, 1000, 2, 64, 64, [1000, 700]),
     ]
     worst = 0.0
     for name, b, lq, lk, h, d, dv, valid in cases:
         args, _ = bf16_bwd_inputs(fa, rng, b, lq, lk, h, d, dv, valid,
                                   device)
         q, k, v, vl = args[:4]
-        slab = fab.scratch_plan(b, lq, lk, h, dv, d, torch.bfloat16)[0]
+        slab = bwd_slab(b, lq, lk, h, d, dv, torch.bfloat16, device)
         if name.endswith("_two_slabs") and -(-lq // slab) != 2:
             raise AssertionError(f"{name}: slab {slab} of {lq} rows")
         got = fab.flash_attention_bwd_cuda(*args, h, d)
@@ -2278,6 +2314,12 @@ def profile_serving(card: str, model_name: str, batch: int = 1) -> int:
     return 0
 
 
+# the flash backward's kernels by name (csrc/flash_attn_bwd.cu's, and the
+# earlier mma.sync form's grad_qk_kernel and grad_t_kernel, so a profile of
+# an older tree reads the same share)
+FLASH_BWD_KERNELS = ("::bwd_", "grad_qk_kernel", "grad_t_kernel")
+
+
 def profile_training(card: str, model_name: str, dtype: str,
                      batch: int, trainable_bn: bool = False) -> int:
     """--profile-train MODEL [--dtype D] [--batch N] [--trainable-bn]: where
@@ -2333,7 +2375,148 @@ def profile_training(card: str, model_name: str, dtype: str,
     kernel = print_profile(prof, 2, f"{cfg.MODEL_NAME} {dtype}", "step")
     print(f"profile: the card busy {kernel / host:.0%} of the unprofiled "
           "median step", flush=True)
+    bwd = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+           and any(n in e.key for n in FLASH_BWD_KERNELS)]
+    bwd_ms = sum(e.self_device_time_total for e in bwd) / 1e3 / 2
+    names = sorted({e.key.split("<")[0].split("::")[-1] for e in bwd})
+    print(f"profile: the flash backward's kernels {bwd_ms:.3f} ms a step, "
+          f"{sum(e.count for e in bwd) / 2:.0f} launches, "
+          f"{bwd_ms / kernel:.1%} of the kernel time ({', '.join(names)})",
+          flush=True)
     return 0
+
+
+# the flash backward's shapes on the training and long-read paths: phase 9's
+# (fp32) and phase 24's (bf16, and fp32 at DeAOT's)
+BWD_PROFILE_SHAPES = (
+    ("AOTT training", torch.float32, 16, 900, 900, 8, 32, 32),
+    ("DeAOTL LT", torch.float32, 1, 900, 19800, 1, 128, 1024),
+    ("DeAOTL 1080p LT", torch.float32, 1, 7232, 14464, 1, 128, 1024),
+    ("DeAOT GPM self-attention", torch.float32, 16, 900, 900, 1, 128, 1024),
+    ("DeAOT LT read", torch.float32, 16, 900, 2700, 1, 128, 1024),
+    ("AOTT training", torch.bfloat16, 16, 900, 900, 8, 32, 32),
+    ("DeAOT GPM self-attention", torch.bfloat16, 16, 900, 900, 1, 128, 1024),
+    ("DeAOT LT read", torch.bfloat16, 16, 900, 2700, 1, 128, 1024))
+
+
+def profile_bwd(card: str, runs: int = 5) -> int:
+    """--profile-bwd: where the flash backward's time goes, kernel by
+    kernel, at BWD_PROFILE_SHAPES: `runs` calls of the wrapper after two
+    warm-up calls under torch.profiler; each kernel's device ms and
+    launches a call, and the call's total on CUDA events. Prints the
+    build's ptxas lines (registers, spills) for every instantiation
+    first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aot_tpu_torch.ops.kernels import _build
+    from aot_tpu_torch.ops.kernels import flash_attn as fa
+    from aot_tpu_torch.ops.kernels import flash_attn_bwd as fab
+
+    _build.build("flash_attn_fwd", "flash_attn_bwd")
+    for line in _build.BUILD_LOGS.get("flash_attn_bwd", "").splitlines():
+        print(f"  nvcc flash_attn_bwd: {line}", flush=True)
+    device = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED + 6)
+    for label, dt, b, lq, lk, h, d, dv in BWD_PROFILE_SHAPES:
+        q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, None, device)
+        q, k, v = (x.to(dt) for x in (q, k, v))
+        out, lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
+        dout = torch.tensor(rng.randn(b, lq, h * dv), dtype=dt,
+                            device=device)
+        args = (q, k, v, vl, out, lse, dout, h, d)
+        call_ms = float(np.median(cuda_times_ms(
+            lambda: fab.flash_attention_bwd_cuda(*args), runs, 2)))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fab.flash_attention_bwd_cuda(*args)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"]
+        total = sum(e.self_device_time_total for e in kernels) / 1e3 / runs
+        print(f"profile-bwd: {label} {str(dt)[6:]} B={b} Lq={lq} Lk={lk} "
+              f"h={h} d={d} dv={dv}: a call {call_ms:.4f} ms on CUDA events, "
+              f"{total:.4f} ms of kernels under the profiler ({card})",
+              flush=True)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+            ms = e.self_device_time_total / 1e3 / runs
+            print(f"profile-bwd:   {ms:9.4f} ms {e.count / runs:6.1f} "
+                  f"launches  {e.key[:110]}", flush=True)
+        del q, k, v, out, lse, dout, args
+        torch.cuda.empty_cache()
+    return 0
+
+
+KNOB_STEPS = 3      # phase 31: steps under each attention mode
+
+
+def check_attn_knobs(kernels, device, card: str):
+    """Phase 31: AOTT stepped under ATTN_IMPL 'auto', 'reference' and
+    'pallas' (the config key, applied by build_infer_engine), each mode's
+    launches asserted as ops.attention routes it and its masks held
+    against 'auto's. Sets the mode back to 'auto'."""
+    from aot_tpu_torch.configs import build_config
+    from aot_tpu_torch.engine import build_infer_engine
+    from aot_tpu_torch.ops import attention as att
+
+    video, mask = synthetic_video(SEED, KNOB_STEPS + 1, SIZE, OBJECTS)
+    frames = torch.from_numpy(video).to(device)
+    ref = torch.from_numpy(mask).to(device)
+    base = build_config(stage="pre_ytb_dav", model="aott")
+    model = seeded_model(base, device)
+    layers = base.MODEL_LSTT_NUM
+    runs = {}
+    try:
+        for impl in ("auto", "reference", "pallas"):
+            cfg = build_config(stage="pre_ytb_dav", model="aott",
+                               ATTN_IMPL=impl)
+            eng = build_infer_engine(model, cfg)
+            if att.attn_impl() != impl:
+                raise AssertionError(f"phase 31: ATTN_IMPL={impl} gave "
+                                     f"{att.attn_impl()}")
+            shadow = eng.make_shadow()
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            state = eng.add_reference_frame(frames[0], ref, OBJECTS)
+            shadow.add_ref(0)
+            preds = []
+            for t in range(1, KNOB_STEPS + 1):
+                state, pred, logits = grow_then_step(eng, shadow, state,
+                                                     frames[t], t,
+                                                     (SIZE, SIZE))
+                check_step_outputs(pred, logits, SIZE)
+                preds.append(pred)
+            torch.cuda.synchronize()
+            runs[impl] = (read_counts(kernels), preds)
+    finally:
+        att.set_attn_impl("auto")
+    forwards = (KNOB_STEPS + 1) * layers     # the reference frame's too
+    # 'pallas' takes both global reads of every LSTT forward to the flash
+    # kernel: the self-attention (900 keys, no live length) and the LT
+    # read (900 keys)
+    want = {
+        "auto": {"local_window_attn": (forwards, forwards),
+                 "flash_attn_fwd": (0, 0)},
+        "reference": {"local_window_attn": (0, 0), "flash_attn_fwd": (0, 0)},
+        "pallas": {"local_window_attn": (forwards, forwards),
+                   "flash_attn_fwd": (2 * forwards, 2 * forwards)},
+    }
+    for impl, (counts, preds) in runs.items():
+        others = {k: n for k, n in counts.items() if k not in want[impl]}
+        agree = min(float((p == q).float().mean())
+                    for p, q in zip(preds, runs["auto"][1]))
+        print(f"phase 31: ATTN_IMPL={impl}: launches {counts} over the "
+              f"reference frame and {KNOB_STEPS} steps (want {want[impl]}, "
+              f"other kernels 0); masks against 'auto' {agree:.6f} ({card})",
+              flush=True)
+        if (any(not lo <= counts[k] <= hi
+                for k, (lo, hi) in want[impl].items())
+                or any(others.values())):
+            raise AssertionError(f"phase 31 {impl}: launches {counts}, want "
+                                 f"{want[impl]} and no other")
+        if agree < MASK_AGREE:
+            raise AssertionError(f"phase 31 {impl}: masks {agree} against "
+                                 "auto's")
 
 
 # --- phases 19-22: bf16, batched and chunked serving ----------------------
@@ -2400,6 +2583,14 @@ def check_bf16_kernels(lwa, fa, device, card: str):
             bias = dense_window_bias(rel_bias, hgt, wid, 7).to(torch.bfloat16)
             fns["library"] = lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=bias)
+            if b == 4:   # fp32 SDPA with the fp32 bias: row 1's yardstick
+                q32, k32, v32, rb32, _ = f32
+                qs32, ks32, vs32 = (split(q32, d).contiguous(),
+                                    split(k32, d).contiguous(),
+                                    split(v32, dv).contiguous())
+                bias32 = dense_window_bias(rb32, hgt, wid, 7)
+                fns["fp32 library"] = lambda: F.scaled_dot_product_attention(
+                    qs32, ks32, vs32, attn_mask=bias32)
         if b == 4:   # the fp32 kernel at the same shape
             fns["fp32 kernel"] = lambda: kernel(*f32, **kw)
         t = time_fns(fns, *((20, 3) if wide or b > 1 else ()))
@@ -2419,6 +2610,12 @@ def check_bf16_kernels(lwa, fa, device, card: str):
             fp32 = (f"; the fp32 kernel {t['fp32 kernel']:.4f} ms (max_abs_err"
                     f" {e32:.2e}, fp32 bound "
                     f"{local_bound(b, hgt, wid, h, d, dv, rv)[0]:.4f} ms)")
+            if "fp32 library" in fns:
+                backend32 = sdpa_backend(qs32, ks32, vs32, bias32)
+                fp32 += (f", fp32 F.scaled_dot_product_attention with the "
+                         f"dense window bias ({backend32}) "
+                         f"{t['fp32 library']:.4f} ms")
+                del bias32
         plan = lwa.launch_plan(b, h, hgt, wid, d, dv, 7, sms)
         print(f"phase 19: {kname} {label} B={b} h={h} d={d} dv={dv} rel_v={rv}"
               f" (passes {plan.passes}, rows {plan.rows}): error {err:.3e} of "
@@ -2875,6 +3072,10 @@ def main() -> int:
     parser.add_argument("--profile-train", metavar="MODEL",
                         help="profile MODEL's training step (e.g. aott, "
                              "r50_deaotl) instead of running the phases")
+    parser.add_argument("--profile-bwd", action="store_true",
+                        help="profile the flash backward's kernels at the "
+                             "training and long-read shapes instead of "
+                             "running the phases")
     parser.add_argument("--dtype", default="bfloat16",
                         help="with --profile-train: TRAIN_DTYPE")
     parser.add_argument("--trainable-bn", action="store_true",
@@ -2920,6 +3121,8 @@ def main() -> int:
         return profile_full_res_eval(card, not args.no_autotune)
     if args.profile_serve:
         return profile_serving(card, args.profile_serve, args.batch or 1)
+    if args.profile_bwd:
+        return profile_bwd(card)
     if args.profile_train:
         return profile_training(card, args.profile_train, args.dtype,
                                 args.batch or TRAIN_BATCH, args.trainable_bn)
@@ -2930,7 +3133,7 @@ def main() -> int:
     for dt in (torch.float32, torch.bfloat16):
         lwa._entry(dt)
         fa._entry(dt)
-        fab._entry(dt)
+    fab._lib()
     print(f"phase 1: built {', '.join(os.path.relpath(s) for s in sos)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in sources:
@@ -3059,6 +3262,9 @@ def main() -> int:
     for k, n in compare_dp_step(device, card).items():
         total[k] += n
     print(f"phases 28-30 done at {time.perf_counter() - start:.1f} s",
+          flush=True)
+    check_attn_knobs(kernels, device, card)
+    print(f"phase 31 done at {time.perf_counter() - start:.1f} s",
           flush=True)
     unused = [name for name, n in total.items() if n == 0]
     if unused:

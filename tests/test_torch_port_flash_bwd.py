@@ -28,6 +28,7 @@ from aot_tpu_torch.ops import attention as att
 from aot_tpu_torch.ops.kernels import flash_attn as fa
 from aot_tpu_torch.ops.kernels import flash_attn_bwd as fab
 from aot_tpu_torch.ops.kernels import local_window_attn as lwa
+from test_torch_port_flash_bwd_plan import c_plan
 
 JAX_TOL = dict(rtol=5e-4, atol=5e-4)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -166,18 +167,26 @@ def test_bwd_wrapper_refuses_non_cuda_tensors():
 
 
 @pytest.mark.parametrize("b,lq,lk,h,dv,slab", [
-    (1, 900, 19800, 1, 1024, 960),   # DeAOTL's LT read: one slab
-    (2, 900, 14400, 1, 1024, 960),
-    (4, 900, 19800, 1, 1024, 832),   # P or dS above 256 MB: two slabs
+    (1, 900, 19800, 1, 1024, 1024),   # DeAOTL's LT read: one slab
+    (2, 900, 14400, 1, 1024, 1024),
+    (4, 900, 19800, 1, 1024, 768),    # a kept array above 256 MB: two slabs
     (1, 7232, 14464, 1, 1024, 4608),  # DAVIS 1080p: two slabs
-    (2, 300, 1000, 2, 64, 320),      # any dv above 32
+    (2, 300, 1000, 2, 64, 384),       # any dv above 32
     (1, 100, 7, 1, 256, 128),
-    (16, 900, 900, 8, 32, 0),        # AOTT training: dK and dV together
+    (16, 900, 900, 8, 32, 0),         # AOTT training: the one-pass form
 ])
 def test_backward_scratch_rule(b, lq, lk, h, dv, slab):
-    """The backward keeps P and dS of a slab of query rows for every value
-    width above one dP chunk (32), each within the slab budget, rows padded
-    to 32 keys; at dv <= 32 it keeps nothing."""
-    lds = -(-lk // 32) * 32
-    assert fab.scratch_plan(b, lq, lk, h, dv) == (slab, 2 * b * h * slab * lds)
-    assert b * h * slab * lds <= fa.SLAB_FLOATS
+    """The backward keeps P^T, dS^T and dS of a slab of query rows (a
+    multiple of 128) for every value width above 32, each within the slab
+    budget, rows of keys padded to 128; at d, dv <= 32 it keeps nothing
+    (the plan csrc/flash_attn_bwd_plan.h fills, built here alone)."""
+    lkp = -(-lk // 128) * 128
+    plan = c_plan(b, lq, lk, h, min(dv, 128), dv)
+    assert plan["SLAB"] == slab
+    kept = b * h * slab * lkp
+    for name in ("PT", "DST", "DS"):
+        hi, lo, rows, cols = plan[name]
+        assert rows * cols * b * h == kept and lo - hi == 4 * kept
+    assert kept <= fa.SLAB_FLOATS
+    if dv <= 32:   # the one-pass form needs d <= 32 too
+        assert c_plan(b, lq, lk, h, 64, dv)["SLAB"] > 0

@@ -44,6 +44,7 @@ from aot_tpu_torch.ops import attention as att
 from aot_tpu_torch.ops.kernels import flash_attn as fa
 from aot_tpu_torch.ops.kernels import flash_attn_bwd as fab
 from test_torch_port_encoders import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_port_flash_bwd_plan import c_plan
 from test_torch_port_train_deaot import (assert_step_close, check_forward,
                                          check_grads, cli_base, run_both)
 
@@ -116,21 +117,24 @@ def test_bf16_plain_bwd_matches_jax_flash_vjp(case):
 
 
 @pytest.mark.parametrize("b,lq,lk,h,d,dv,slab,sums", [
-    (16, 900, 2700, 1, 128, 1024, 960, False),   # DeAOT's LT read: one slab
-    (16, 900, 900, 1, 128, 1024, 960, False),    # the GPM self-attention
+    (16, 900, 2700, 1, 128, 1024, 1024, False),  # DeAOT's LT read: one slab
+    (16, 900, 900, 1, 128, 1024, 1024, False),   # the GPM self-attention
     (1, 7232, 14464, 1, 128, 1024, 4608, True),  # 1080p: two slabs
     (16, 900, 900, 8, 32, 32, 0, False),         # AOTT: nothing kept
 ])
 def test_bf16_backward_scratch_rule(b, lq, lk, h, d, dv, slab, sums):
-    """At bf16 the backward keeps P and dS in bf16 (half the fp32 floats,
-    the same slabs), and over more than one slab the fp32 sums of dV and
-    dK (csrc/flash_attn_bwd.cu)."""
-    lds = -(-lk // 32) * 32
-    floats = (b * h * slab * lds + (b * lk * h * (dv + d) if sums else 0)
-              if slab else 0)
-    assert fab.scratch_plan(b, lq, lk, h, dv, d, BF16) == (slab, floats)
-    assert fab.scratch_plan(b, lq, lk, h, dv, d) == (slab, 2 * b * h * slab
-                                                      * lds)
+    """At bf16 the backward keeps P^T, dS^T and dS in bf16 (one copy each,
+    the fp32 form a hi and a lo copy; the same slabs), and over more than
+    one slab the fp32 sums of dV and dK (csrc/flash_attn_bwd.cu)."""
+    kept = b * h * slab * (-(-lk // 128) * 128)
+    plan = c_plan(b, lq, lk, h, d, dv, BF16)
+    assert c_plan(b, lq, lk, h, d, dv)["SLAB"] == plan["SLAB"] == slab
+    assert (plan["ACC"] >= 0) == sums
+    for name in ("PT", "DST", "DS"):
+        hi, lo, rows, cols = plan[name]
+        assert lo == -1 and rows * cols * b * h == kept
+    if slab:
+        assert plan["PT"][2:] == (-(-lk // 128) * 128, slab)
 
 
 # --- the training window form of local attention --------------------------
