@@ -76,23 +76,8 @@
 // 0.080 ms and the kernel runs 0.37-0.44 ms. wgmma with TMA and warp
 // specialisation is the next step.
 //
-// bf16 (entry flash_attn_fwd_bf16; bf16 serving, TEST_DTYPE=bfloat16). The
-// same kernels instantiated for bf16 q, k, v and out compute what
-// `_fwd_kernel` computes at bf16 (flash_attn_vjp.py:41-93): S = Q K^T by
-// mma.sync m16n8k16 on the bf16 operands into fp32 accumulators (each
-// product of two bf16 values is exact in fp32), then scaled; the running
-// max, sum and lse in fp32; P rounded to bf16 (`p.astype(v.dtype)`, :85)
-// and P V by bf16 mma.sync into fp32; the output rounded to bf16 once.
-// In the one pass the score accumulators of two 8-key blocks are exactly
-// the A fragment of a 16-key m16n8k16 product (rows g and g + 8, keys 2t
-// and 2t + 1 of each block), so P is packed into bf16 pairs in registers
-// with no permutation; the two-pass form rounds exp(S - lse) from the
-// scores scratch. Tiles hold bf16 in shared memory (half the bytes of the
-// fp32 tiles), 8 elements a 16-byte cp.async, so d and dv are multiples
-// of 8. One bf16 product replaces the three TF32 ones: the bound is
-// 2x the FLOPs at 989 TFLOP/s and half the operand bytes.
+// bf16 q, k and v go to flash_attn_fwd_bf16.cu (wgmma).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "bf16_mma.cuh"
@@ -116,8 +101,7 @@ struct Args {
   const T* k;
   const T* v;
   const int* valid;
-  void* out;               // (B, Lq, h*dv) in T, or the fp32 out partials
-                           // of a split
+  void* out;               // (B, Lq, h*dv), or the out partials of a split
   float* lse;              // (B*h, Lq), or the lse partials
   long long out_split;     // floats between two splits' partials of out
   long long lse_split;     // ... of lse
@@ -138,16 +122,14 @@ struct Args {
   float* stat_l;
   int score_splits;
   int score_tiles_per_split;
-  int out_bf16;            // `out` holds bf16 (not the fp32 partials)
 };
 
 // D: q/k channels padded to 32, 128 or 256 (zero-filled); DVT: value
 // columns a block; BK: keys a tile. Strides in elements of T.
 template <typename T, int D, int DVT, int BK>
 struct Tiles {
-  // fp32: row strides = 4 mod 32 words, fragment reads hit 32 banks;
-  // bf16: 16 bytes of padding, rows stay 16-byte aligned
-  static constexpr int kPad = kIsBf16<T> ? 8 : 4;
+  // row strides = 4 mod 32 words, fragment reads hit 32 banks
+  static constexpr int kPad = 4;
   static constexpr int kLdQ = D + kPad;
   static constexpr int kLdV = DVT + kPad;
   static constexpr int kQ = kBQ * kLdQ;
@@ -171,8 +153,8 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args<E> a) {
   using T = Tiles<E, D, DVT, BK>;
   constexpr int kNB = BK / 8;     // 8-key blocks of a tile
   constexpr int kNV = DVT / 8;    // 8-column blocks of a value tile
-  // fp32: the score's hi.hi term summed apart
-  constexpr bool kApart = D > 32 && !kIsBf16<E>;
+  // the score's hi.hi term summed apart
+  constexpr bool kApart = D > 32;
   extern __shared__ float4 smem4[];
   E* s_q = reinterpret_cast<E*>(smem4);
   E* s_k = s_q + T::kQ;           // two stages
@@ -196,13 +178,13 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args<E> a) {
   const E* k_base = a.k + b * a.k_sb + (long long)head * a.d;
   const E* v_base = a.v + b * a.v_sb + (long long)head * a.dv;
 
-  stage_t<E, kBQ, D, T::kLdQ, kThreads>(s_q, q_base, a.q_sl, a.lq - q0, a.d);
+  stage<kBQ, D, T::kLdQ, kThreads>(s_q, q_base, a.q_sl, a.lq - q0, a.d);
   auto load_tile = [&](int i) {   // key tile i of this split -> stage i & 1
     const int k0 = k_begin + i * BK;
-    stage_t<E, BK, D, T::kLdQ, kThreads>(s_k + (i & 1) * T::kK,
+    stage<BK, D, T::kLdQ, kThreads>(s_k + (i & 1) * T::kK,
                                          k_base + k0 * a.k_sl, a.k_sl,
                                          k_end - k0, a.d);
-    stage_t<E, BK, DVT, T::kLdV, kThreads>(s_v + (i & 1) * T::kV,
+    stage<BK, DVT, T::kLdV, kThreads>(s_v + (i & 1) * T::kV,
                                            v_base + k0 * a.v_sl, a.v_sl,
                                            k_end - k0, a.dv);
   };
@@ -241,39 +223,23 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args<E> a) {
           for (int e = 0; e < 4; ++e) s_small[n][e] = 0.f;
       }
       // S = Q K^T: A = q rows, B(k = channel, n = key) = k rows
-      if constexpr (kIsBf16<E>) {
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          if (ks * 2 < k_steps) {
-            const E* qa = q_frag + ks * 16 + t;   // column 2t of the step
-            const uint32_t fa[4] = {ld_pair(qa), ld_pair(qa + 8 * T::kLdQ),
-                                    ld_pair(qa + 8),
-                                    ld_pair(qa + 8 * T::kLdQ + 8)};
+      for (int ks = 0; ks < D / 8; ++ks) {
+        if (ks < k_steps) {
+          const E* qa = q_frag + ks * 8;
+          const FragA fa = frag_a(qa[0], qa[8 * T::kLdQ], qa[4],
+                                  qa[8 * T::kLdQ + 4]);
 #pragma unroll
-            for (int n = 0; n < kNB; ++n) {
-              const E* kb = tk + (n * 8 + g) * T::kLdQ + ks * 16 + 2 * t;
-              mma_bf16(s[n], fa, ld_pair(kb), ld_pair(kb + 8));
-            }
-          }
-        }
-      } else {
-#pragma unroll
-        for (int ks = 0; ks < D / 8; ++ks) {
-          if (ks < k_steps) {
-            const E* qa = q_frag + ks * 8;
-            const FragA fa = frag_a(qa[0], qa[8 * T::kLdQ], qa[4],
-                                    qa[8 * T::kLdQ + 4]);
-#pragma unroll
-            for (int n = 0; n < kNB; ++n) {
-              const E* kb = tk + (n * 8 + g) * T::kLdQ + ks * 8 + t;
-              if constexpr (kApart)
-                mma3_apart(s[n], s_small[n], fa, frag_b(kb[0], kb[4]));
-              else
-                mma3(s[n], fa, frag_b(kb[0], kb[4]));
-            }
+          for (int n = 0; n < kNB; ++n) {
+            const E* kb = tk + (n * 8 + g) * T::kLdQ + ks * 8 + t;
+            if constexpr (kApart)
+              mma3_apart(s[n], s_small[n], fa, frag_b(kb[0], kb[4]));
+            else
+              mma3(s[n], fa, frag_b(kb[0], kb[4]));
           }
         }
       }
+
       if constexpr (kApart) {
 #pragma unroll
         for (int n = 0; n < kNB; ++n)
@@ -316,35 +282,15 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args<E> a) {
       for (int n = 0; n < kNV; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
-      if constexpr (kIsBf16<E>) {
-        // P rounded to bf16: blocks 2kb and 2kb + 1 are the 16 keys of
-        // one product's A fragment
 #pragma unroll
-        for (int kb = 0; kb < kNB / 2; ++kb) {
-          const float* p0 = s[2 * kb];
-          const float* p1 = s[2 * kb + 1];
-          const uint32_t fp[4] = {pack_bf16(p0[0], p0[1]),
-                                  pack_bf16(p0[2], p0[3]),
-                                  pack_bf16(p1[0], p1[1]),
-                                  pack_bf16(p1[2], p1[3])};
-          const E* vb = tv + (kb * 16 + 2 * t) * T::kLdV + g;
+      for (int kb = 0; kb < kNB; ++kb) {
+        const FragA fp = a_from_acc(s[kb]);
+        const E* vb = tv + (kb * 8 + 2 * t) * T::kLdV + g;
 #pragma unroll
-          for (int n = 0; n < kNV; ++n)
-            mma_bf16(pv[n], fp,
-                     pack_bf16(vb[n * 8], vb[T::kLdV + n * 8]),
-                     pack_bf16(vb[8 * T::kLdV + n * 8],
-                               vb[9 * T::kLdV + n * 8]));
-        }
-      } else {
-#pragma unroll
-        for (int kb = 0; kb < kNB; ++kb) {
-          const FragA fp = a_from_acc(s[kb]);
-          const E* vb = tv + (kb * 8 + 2 * t) * T::kLdV + g;
-#pragma unroll
-          for (int n = 0; n < kNV; ++n)
-            mma3(pv[n], fp, frag_b(vb[n * 8], vb[T::kLdV + n * 8]));
-        }
+        for (int n = 0; n < kNV; ++n)
+          mma3(pv[n], fp, frag_b(vb[n * 8], vb[T::kLdV + n * 8]));
       }
+
 #pragma unroll
       for (int n = 0; n < kNV; ++n) {
         acc[n][0] = fmaf(acc[n][0], alpha[0], pv[n][0]);
@@ -372,7 +318,7 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_kernel(Args<E> a) {
     for (int n = 0; n < kNV; ++n) {
       const int col = n * 8 + 2 * t;   // dv % 4 == 0: both columns or none
       if (col < a.dv)
-        store2(a.out, o_row + col, a.out_bf16,
+        store2(a.out, o_row + col, false,
                empty ? 0.f : acc[n][2 * r] / l[r],
                empty ? 0.f : acc[n][2 * r + 1] / l[r]);
     }
@@ -388,7 +334,7 @@ __global__ void __launch_bounds__(256)
 merge_kernel(const float* __restrict__ part, const float* __restrict__ part_lse,
              void* __restrict__ out, float* __restrict__ lse, int splits,
              int heads, int lq, int dv, long long n4, long long out_split,
-             long long lse_split, int out_bf16) {
+             long long lse_split) {
   const int hd = heads * dv;
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4;
        i += (long long)gridDim.x * 256) {
@@ -415,8 +361,8 @@ merge_kernel(const float* __restrict__ part, const float* __restrict__ part_lse,
         o.w = fmaf(w, x.w, o.w);
       }
     }
-    store2(out, e, out_bf16, o.x, o.y);
-    store2(out, e + 2, out_bf16, o.z, o.w);
+    store2(out, e, false, o.x, o.y);
+    store2(out, e + 2, false, o.z, o.w);
     if (col % dv == 0) lse[li] = total;
   }
 }
@@ -433,7 +379,7 @@ constexpr int kBKP = 32;   // keys a tile, pass 2
 
 template <typename E, int D>
 struct ScoreTiles {
-  static constexpr int kLd = D + (kIsBf16<E> ? 8 : 4);
+  static constexpr int kLd = D + 4;
   static constexpr int kQ = kBQ * kLd;
   static constexpr int kK = kBKS * kLd;
   static constexpr size_t kSmem = sizeof(E) * (kQ + 2 * kK);
@@ -463,10 +409,10 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args<E> a) {
 
   const E* q_base = a.q + b * a.q_sb + (long long)head * a.d + q0 * a.q_sl;
   const E* k_base = a.k + b * a.k_sb + (long long)head * a.d;
-  stage_t<E, kBQ, D, T::kLd, kThreads>(s_q, q_base, a.q_sl, a.lq - q0, a.d);
+  stage<kBQ, D, T::kLd, kThreads>(s_q, q_base, a.q_sl, a.lq - q0, a.d);
   auto load_tile = [&](int i) {
     const int k0 = k_begin + i * kBKS;
-    stage_t<E, kBKS, D, T::kLd, kThreads>(s_k + (i & 1) * T::kK,
+    stage<kBKS, D, T::kLd, kThreads>(s_k + (i & 1) * T::kK,
                                           k_base + k0 * a.k_sl, a.k_sl,
                                           k_end - k0, a.d);
   };
@@ -494,36 +440,20 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args<E> a) {
       for (int n = 0; n < kNB; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = s_small[n][e] = 0.f;
-      if constexpr (kIsBf16<E>) {
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          if (ks * 2 < k_steps) {
-            const E* qa = q_frag + ks * 16 + t;   // column 2t of the step
-            const uint32_t fa[4] = {ld_pair(qa), ld_pair(qa + 8 * T::kLd),
-                                    ld_pair(qa + 8),
-                                    ld_pair(qa + 8 * T::kLd + 8)};
+      for (int ks = 0; ks < D / 8; ++ks) {
+        if (ks < k_steps) {
+          const E* qa = q_frag + ks * 8;
+          const FragA fa = frag_a(qa[0], qa[8 * T::kLd], qa[4],
+                                  qa[8 * T::kLd + 4]);
 #pragma unroll
-            for (int n = 0; n < kNB; ++n) {
-              const E* kb = tk + (n * 8 + g) * T::kLd + ks * 16 + 2 * t;
-              mma_bf16(s[n], fa, ld_pair(kb), ld_pair(kb + 8));
-            }
-          }
-        }
-      } else {
-#pragma unroll
-        for (int ks = 0; ks < D / 8; ++ks) {
-          if (ks < k_steps) {
-            const E* qa = q_frag + ks * 8;
-            const FragA fa = frag_a(qa[0], qa[8 * T::kLd], qa[4],
-                                    qa[8 * T::kLd + 4]);
-#pragma unroll
-            for (int n = 0; n < kNB; ++n) {
-              const E* kb = tk + (n * 8 + g) * T::kLd + ks * 8 + t;
-              mma3_apart(s[n], s_small[n], fa, frag_b(kb[0], kb[4]));
-            }
+          for (int n = 0; n < kNB; ++n) {
+            const E* kb = tk + (n * 8 + g) * T::kLd + ks * 8 + t;
+            mma3_apart(s[n], s_small[n], fa, frag_b(kb[0], kb[4]));
           }
         }
       }
+
 #pragma unroll
       for (int n = 0; n < kNB; ++n)
 #pragma unroll
@@ -623,7 +553,7 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args<E> a) {
     const int k0 = k_begin + i * kBKP;
     stage<kBQ, kBKP, T::kLdS, kThreads>(s_s + (i & 1) * T::kS, s_base + k0,
                                         a.lds, a.lq - q0, k_end - k0);
-    stage_t<E, kBKP, DVT, T::kLdV, kThreads>(s_v + (i & 1) * T::kV,
+    stage<kBKP, DVT, T::kLdV, kThreads>(s_v + (i & 1) * T::kV,
                                              v_base + k0 * a.v_sl, a.v_sl,
                                              k_end - k0, a.dv - c0);
   };
@@ -675,56 +605,25 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args<E> a) {
       for (int n = 0; n < kNV; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
-      if constexpr (kIsBf16<E>) {
-        // P = exp(S - lse) rounded to bf16, 16 keys a product: row g or
-        // g + 8 (r), keys 2t, 2t + 1 (+ 8 for the upper half)
-        const float* ts = s_s + (i & 1) * T::kS + (warp * 16 + g) * T::kLdS;
-        const E* tv = s_v + (i & 1) * T::kV + 2 * t * T::kLdV + g;
-#pragma unroll
-        for (int kb = 0; kb < kBKP / 16; ++kb) {
-          float p[2][4];      // [r][key 2t, 2t + 1, 2t + 8, 2t + 9]
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = kb * 16 + 2 * t + (j & 1) + 8 * (j >> 1);
-            const bool k_ok = k0 + c < k_end;
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              p[r][j] = (k_ok && live_r[r])
-                            ? exp2f(fmaf(ts[r * 8 * T::kLdS + c], kLog2e,
-                                         -lse2[r]))
-                            : 0.f;
-          }
-          const uint32_t fp[4] = {pack_bf16(p[0][0], p[0][1]),
-                                  pack_bf16(p[1][0], p[1][1]),
-                                  pack_bf16(p[0][2], p[0][3]),
-                                  pack_bf16(p[1][2], p[1][3])};
-          const E* vb = tv + kb * 16 * T::kLdV;
-#pragma unroll
-          for (int n = 0; n < kNV; ++n)
-            mma_bf16(pv[n], fp, pack_bf16(vb[n * 8], vb[T::kLdV + n * 8]),
-                     pack_bf16(vb[8 * T::kLdV + n * 8],
-                               vb[9 * T::kLdV + n * 8]));
-        }
-      } else {
       const float* ts = s_s + (i & 1) * T::kS + (warp * 16 + g) * T::kLdS + t;
       const E* tv = s_v + (i & 1) * T::kV + t * T::kLdV + g;
 #pragma unroll
       for (int kb = 0; kb < kBKP / 8; ++kb) {
-        // P = exp(S - lse) over live keys; unread scores are never selected
-        const bool k_lo = k0 + kb * 8 + t < k_end;
-        const bool k_hi = k0 + kb * 8 + t + 4 < k_end;
-        const float* ps = ts + kb * 8;
-        const float p0 = (k_lo && live_r[0]) ? exp2f(fmaf(ps[0], kLog2e, -lse2[0])) : 0.f;
-        const float p1 = (k_lo && live_r[1]) ? exp2f(fmaf(ps[8 * T::kLdS], kLog2e, -lse2[1])) : 0.f;
-        const float p2 = (k_hi && live_r[0]) ? exp2f(fmaf(ps[4], kLog2e, -lse2[0])) : 0.f;
-        const float p3 = (k_hi && live_r[1]) ? exp2f(fmaf(ps[8 * T::kLdS + 4], kLog2e, -lse2[1])) : 0.f;
-        const FragA fp = frag_a(p0, p1, p2, p3);
-        const E* vb = tv + kb * 8 * T::kLdV;
+      // P = exp(S - lse) over live keys; unread scores are never selected
+      const bool k_lo = k0 + kb * 8 + t < k_end;
+      const bool k_hi = k0 + kb * 8 + t + 4 < k_end;
+      const float* ps = ts + kb * 8;
+      const float p0 = (k_lo && live_r[0]) ? exp2f(fmaf(ps[0], kLog2e, -lse2[0])) : 0.f;
+      const float p1 = (k_lo && live_r[1]) ? exp2f(fmaf(ps[8 * T::kLdS], kLog2e, -lse2[1])) : 0.f;
+      const float p2 = (k_hi && live_r[0]) ? exp2f(fmaf(ps[4], kLog2e, -lse2[0])) : 0.f;
+      const float p3 = (k_hi && live_r[1]) ? exp2f(fmaf(ps[8 * T::kLdS + 4], kLog2e, -lse2[1])) : 0.f;
+      const FragA fp = frag_a(p0, p1, p2, p3);
+      const E* vb = tv + kb * 8 * T::kLdV;
 #pragma unroll
-        for (int n = 0; n < kNV; ++n)
-          mma3(pv[n], fp, frag_b(vb[n * 8], vb[4 * T::kLdV + n * 8]));
+      for (int n = 0; n < kNV; ++n)
+        mma3(pv[n], fp, frag_b(vb[n * 8], vb[4 * T::kLdV + n * 8]));
       }
-      }
+
       // fold once per tile in fp32: the mma's own accumulation rounds
       // toward zero at every step (see tf32x3::mma3_apart)
 #pragma unroll
@@ -749,7 +648,7 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args<E> a) {
     for (int n = 0; n < kNV; ++n) {
       const int col = n * 8 + 2 * t;
       if (c0 + col < a.dv)
-        store2(a.out, o_row + col, a.out_bf16, acc[n][2 * r],
+        store2(a.out, o_row + col, false, acc[n][2 * r],
                acc[n][2 * r + 1]);
     }
   }
@@ -758,7 +657,7 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args<E> a) {
 // out = the sum of pass 2's key splits, in split order (n even)
 __global__ void __launch_bounds__(256)
 sum_splits_kernel(const float* __restrict__ part, void* __restrict__ out,
-                  long long n, int splits, int out_bf16) {
+                  long long n, int splits) {
   for (long long i = 2 * (blockIdx.x * 256LL + threadIdx.x); i < n;
        i += 2LL * gridDim.x * 256) {
     float x = 0.f, y = 0.f;
@@ -766,7 +665,7 @@ sum_splits_kernel(const float* __restrict__ part, void* __restrict__ out,
       x += part[s * n + i];
       y += part[s * n + i + 1];
     }
-    store2(out, i, out_bf16, x, y);
+    store2(out, i, false, x, y);
   }
 }
 
@@ -821,7 +720,6 @@ int fwd(const void* q, const void* k, const void* v, const void* valid,
         void* stream) {
   // elements of a 16-byte copy: widths and strides are multiples of it
   constexpr int kVec = 16 / sizeof(E);
-  constexpr int kOutBf16 = kIsBf16<E> ? 1 : 0;
   const bool two_pass = dv > 128;
   if (batch < 1 || heads < 1 || lq < 1 || lk < 0 || d < 4 || d > kMaxD ||
       d % 4 != 0 || dv < 4 || dv % 4 != 0 || d % kVec != 0 ||
@@ -850,8 +748,7 @@ int fwd(const void* q, const void* k, const void* v, const void* valid,
               (pv_tiles + splits - 1) / splits,
               q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale,
               0, slab, scores, lds, stat_m, stat_l, score_splits,
-              (score_tiles + score_splits - 1) / score_splits,
-              splits > 1 ? 0 : kOutBf16};
+              (score_tiles + score_splits - 1) / score_splits};
     int err = 0;
     for (int r0 = 0; r0 < lq && err == 0; r0 += slab) {
       a.row0 = r0;
@@ -863,7 +760,7 @@ int fwd(const void* q, const void* k, const void* v, const void* valid,
     if (err != 0 || splits == 1) return err;
     const long long blocks = (n_out + 511) / 512 < 2048 ? (n_out + 511) / 512 : 2048;
     sum_splits_kernel<<<(int)blocks, 256, 0, s>>>(part_out, out, n_out,
-                                                  splits, kOutBf16);
+                                                  splits);
     return (int)cudaGetLastError();
   }
   const int bk = (d <= 32 && dv <= 32) ? 64 : 32;   // launch_d's
@@ -877,8 +774,7 @@ int fwd(const void* q, const void* k, const void* v, const void* valid,
             heads, lq, lk, d, dv, valid_all, 1,
             (key_tiles + splits - 1) / splits,
             q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale,
-            0, 0, nullptr, 0, nullptr, nullptr, 0, 0,
-            splits > 1 ? 0 : kOutBf16};
+            0, 0, nullptr, 0, nullptr, nullptr, 0, 0};
   int err = d <= 32 ? launch_d<E, 32>(a, batch, splits, s)
           : d <= 128 ? launch_d<E, 128>(a, batch, splits, s)
                      : launch_d<E, 256>(a, batch, splits, s);
@@ -887,17 +783,16 @@ int fwd(const void* q, const void* k, const void* v, const void* valid,
   const long long blocks = (n4 + 255) / 256 < 2048 ? (n4 + 255) / 256 : 2048;
   merge_kernel<<<(int)blocks, 256, 0, s>>>(part_out, part_lse, out,
                                            (float*)lse, splits, heads, lq, dv,
-                                           n4, n_out, n_lse, kOutBf16);
+                                           n4, n_out, n_lse);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points, bound from Python with ctypes: flash_attn_fwd for
-// fp32 q, k, v and out, flash_attn_fwd_bf16 for bf16 ones (lse and every
-// scratch fp32 in both). Strides are in elements; every stride and pointer
-// must be 16-byte aligned (the wrapper checks), and for bf16 d and dv are
-// multiples of 8.
+// Plain C entry point, bound from Python with ctypes: flash_attn_fwd for
+// fp32 q, k, v and out (lse and every scratch fp32). Strides are in
+// elements; every stride and pointer must be 16-byte aligned (the wrapper
+// checks).
 // One pass (dv <= 128): `splits` > 1 splits the key loop over that many
 // blocks a query tile, for grids too small to fill the card; the blocks
 // write their partials into `part` (splits x B*Lq*h*dv floats of out, then
@@ -926,19 +821,4 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   return fwd<float>(q, k, v, valid, out, lse, part, splits, score_splits,
                     slab, batch, heads, lq, lk, d, dv, valid_all, q_sb, q_sl,
                     k_sb, k_sl, v_sb, v_sl, scale, stream);
-}
-
-extern "C" int flash_attn_fwd_bf16(const void* q, const void* k,
-                                   const void* v, const void* valid,
-                                   void* out, void* lse, void* part,
-                                   int splits, int score_splits, int slab,
-                                   int batch, int heads, int lq, int lk,
-                                   int d, int dv, int valid_all,
-                                   long long q_sb, long long q_sl,
-                                   long long k_sb, long long k_sl,
-                                   long long v_sb, long long v_sl,
-                                   float scale, void* stream) {
-  return fwd<bf16>(q, k, v, valid, out, lse, part, splits, score_splits,
-                   slab, batch, heads, lq, lk, d, dv, valid_all, q_sb, q_sl,
-                   k_sb, k_sl, v_sb, v_sl, scale, stream);
 }

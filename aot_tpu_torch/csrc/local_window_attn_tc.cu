@@ -82,19 +82,8 @@
 // 8-16 warps an SM, each product a chain of dependent mma.sync steps and
 // each stage a barrier. wgmma over wider tiles is the next step.
 //
-// bf16 (entry local_window_attn_tc_fwd_bf16; bf16 serving). The same
-// kernel instantiated for bf16 q, k, v and out computes what `_kernel_flat`
-// and `_kernel_wide` compute for bf16 inputs (local_window_attn.py:
-// 420-469): q, k and v are widened to fp32 (exactly), rel_bias and rel_v
-// stay fp32, the masked softmax over the window and P V are fp32, and the
-// output is rounded to bf16 once. The q tile and the k and v halo rings
-// hold bf16 in shared memory (4 elements an 8-byte cp.async: half the
-// bytes staged and read through L2), widened where the fragments are
-// built. A bf16 value is exact in TF32, so products against a widened k or
-// v need no low part; q * scale and P still do, and the kernel keeps
-// 3xTF32 for all of them (the low parts of the widened operands are 0).
+// bf16 q, k and v go to local_window_attn_bf16.cu (bf16 products).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
@@ -102,32 +91,18 @@
 namespace {
 
 using namespace tf32x3;
-using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float ldf(float x) { return x; }
-__device__ __forceinline__ float ldf(bf16 x) { return __bfloat162float(x); }
 
-// copy 4 consecutive elements (16 bytes of fp32, 8 of bf16); zero if !ok
+// copy 4 consecutive elements (16 bytes); zero if !ok
 __device__ __forceinline__ void cp_async_4el(float* dst, const float* src,
                                              bool ok) {
   cp_async16(dst, src, ok);
 }
 
-__device__ __forceinline__ void cp_async_4el(bf16* dst, const bf16* src,
-                                             bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 8 : 0)
-               : "memory");
-}
-
 // two adjacent output columns
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 constexpr int kTX = 16;        // queries a tile row: the mma tile's 16 rows
@@ -705,14 +680,13 @@ int fwd(const void* q, const void* k, const void* v, const void* rel_bias,
 
 }  // namespace
 
-// Plain C entry points, bound from Python with ctypes: local_window_attn_tc_fwd
-// for fp32 q, k, v and out, local_window_attn_tc_fwd_bf16 for bf16 ones
-// (rel_bias, rel_v and the scratch fp32 in both). plan[0] is the query rows
-// a tile (1, 2 or 4) of the first pass (the only one for d, dv <= 128,
-// else the scores), plan[1] that of the value pass (two passes), and `p`
-// the value pass's (B*h, HW, win2) fp32 scratch; the wrapper's launch plan
-// chooses them. Launches on `stream` and returns cudaGetLastError() (0 on
-// success); allocates nothing.
+// Plain C entry point, bound from Python with ctypes: local_window_attn_tc_fwd
+// for fp32 q, k, v and out (rel_bias, rel_v and the scratch fp32).
+// plan[0] is the query rows a tile (1, 2 or 4) of the first pass (the only
+// one for d, dv <= 128, else the scores), plan[1] that of the value pass
+// (two passes), and `p` the value pass's (B*h, HW, win2) fp32 scratch; the
+// wrapper's launch plan chooses them. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); allocates nothing.
 extern "C" int local_window_attn_tc_fwd(
     const void* q, const void* k, const void* v, const void* rel_bias,
     const void* rel_v, void* out, void* p, int batch, int heads, int height,
@@ -720,13 +694,4 @@ extern "C" int local_window_attn_tc_fwd(
     void* stream) {
   return fwd<float>(q, k, v, rel_bias, rel_v, out, p, batch, heads, height,
                     width, d, dv, max_dis, plan, scale, stream);
-}
-
-extern "C" int local_window_attn_tc_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* rel_bias,
-    const void* rel_v, void* out, void* p, int batch, int heads, int height,
-    int width, int d, int dv, int max_dis, const int* plan, float scale,
-    void* stream) {
-  return fwd<bf16>(q, k, v, rel_bias, rel_v, out, p, batch, heads, height,
-                   width, d, dv, max_dis, plan, scale, stream);
 }

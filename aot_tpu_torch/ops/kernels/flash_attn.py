@@ -1,9 +1,12 @@
-"""Flash-attention forward: the CUDA kernel and its plain PyTorch version.
+"""Flash-attention forward: the CUDA kernels and their plain PyTorch version.
 
 Port of aot_tpu/ops/pallas/flash_attn_vjp.py:338 flash_attention, forward
-(`_flash_fwd_raw` :211, kernel body `_fwd_kernel` :51). The kernel is
-csrc/flash_attn_fwd.cu; its header says what bounds it on Hopper. The
-global attention over a long LT memory reaches it through
+(`_flash_fwd_raw` :211, kernel body `_fwd_kernel` :51). The kernels are
+csrc/flash_attn_fwd.cu for fp32 q, k, v (3xTF32 mma.sync; its launch plan
+is `fwd_plan`) and csrc/flash_attn_fwd_bf16.cu for bf16 ones (wgmma; its
+launch plan is csrc/flash_attn_fwd_bf16_plan.h's, read through
+`bf16_launch_plan`); each source's header says what bounds it on Hopper.
+The global attention over a long LT memory reaches them through
 ops/attention.py `use_flash`.
 
   flash_attention        entry point: a CPU tensor takes the plain version,
@@ -11,22 +14,23 @@ ops/attention.py `use_flash`.
                          is no fallback
   flash_attention_cuda   the kernel wrapper (counts LAUNCHES, or
                          BF16_LAUNCHES for bf16: one per call, which runs
-                         the kernel's passes: the scores and P V for
-                         dv > 128, and the merge of key splits)
+                         the kernel's passes and the merge of key splits)
   flash_attention_plain  the same function in plain PyTorch: a masked
                          softmax over the live keys
   flash_attention_train  the differentiable form (the `FlashAttention`
                          autograd Function): this forward, and the backward
                          of ops/kernels/flash_attn_bwd.py
+  bf16_launch_plan       the bf16 kernel's plan and workspace, as its header
+                         fills them (the CPU tests build that header alone:
+                         tests/test_torch_port_bf16_fwd.py)
 
 All three return (out, lse): out (B, Lq, h*dv) in v's dtype; lse (B*h,
 Lq), fp32, the log-sum-exp of the scaled scores over the live keys. A row
 with no live key gives out 0 and lse -1e30, as the TPU kernel does
-(:89-96). q, k and v are fp32, or bf16 for bf16 serving and training (the
-kernel's bf16 instantiation): fp32 scores, softmax statistics and
-accumulation, P rounded to bf16 before P V (`_fwd_kernel` at bf16,
-:41-93). `flash_attention_train` takes both, its backward the matching
-instantiation of ops/kernels/flash_attn_bwd.py.
+(:89-96). q, k and v are fp32, or bf16 for bf16 serving and training: fp32
+scores, softmax statistics and accumulation, P rounded to bf16 before P V
+(`_fwd_kernel` at bf16, :41-93). `flash_attention_train` takes both, its
+backward the matching instantiation of ops/kernels/flash_attn_bwd.py.
 valid_len: None (all Lk keys live), an int, or a (B,) int tensor; keys at or
 beyond it, or beyond Lk, are dead.
 """
@@ -68,10 +72,10 @@ def _dims(q, v, num_heads: int, d_att: Optional[int]) -> Tuple[int, int]:
     return d, v.shape[-1] // num_heads
 
 
-# Elements a 16-byte copy moves: the kernel's widths and strides are
-# multiples of it, for each q/k/v type it takes; and its C entry point
+# Elements a 16-byte copy moves: the kernels' widths and strides are
+# multiples of it, for each q/k/v type they take
 _VEC = {torch.float32: 4, torch.bfloat16: 8}
-_ENTRY = {torch.float32: "flash_attn_fwd", torch.bfloat16: "flash_attn_fwd_bf16"}
+_ENTRY = {torch.float32: "flash_attn_fwd"}     # the fp32 kernel's C entry
 
 
 def shape_error(d: int, dv: int,
@@ -117,7 +121,7 @@ def flash_attention_plain(
 
 
 def _entry(dtype: torch.dtype):
-    """The kernel's instantiation for q/k/v/out of `dtype`."""
+    """The fp32 kernel's C entry (`dtype` float32)."""
     fn = getattr(_build.load("flash_attn_fwd"), _ENTRY[dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
@@ -181,6 +185,47 @@ def fwd_plan(b: int, lq: int, lk: int, num_heads: int, dv: int,
                           if splits > 1 else 0)
 
 
+# The bf16 kernel's plan: its inputs, in the order of
+# csrc/flash_attn_fwd_bf16_plan.h's PlanField; the header fills the rest
+# (BF16_PLAN_OUTPUTS) and sizes the workspace, and alone owns the rule
+BF16_PLAN_FIELDS = ("B", "H", "LQ", "LK", "D", "DV")
+BF16_PLAN_OUTPUTS = ("D_PAD", "VALUE_TILE", "VALUE_TILES", "Q_TILES",
+                     "SPLITS", "TILES_PER_SPLIT", "STAGES", "SMEM", "BLOCKS",
+                     "PART_OUT", "PART_LSE", "WORKSPACE", "BOX_COLS")
+
+
+def _bf16_lib() -> ctypes.CDLL:
+    """csrc/flash_attn_fwd_bf16.cu's library, its entries bound."""
+    lib = _build.load("flash_attn_fwd_bf16")
+    if lib.fwd_bf16_plan.argtypes is None:
+        lib.fwd_bf16_plan.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.fwd_bf16_plan.restype = ctypes.c_longlong
+        lib.flash_attn_fwd_bf16.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_longlong] * 6
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attn_fwd_bf16.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def bf16_launch_plan(inputs: Tuple[int, ...],
+                     sms: int) -> Tuple[ctypes.Array, int]:
+    """(the bf16 kernel's `plan`, the workspace bytes) for `inputs`
+    (BF16_PLAN_FIELDS' values) on a card of `sms` multiprocessors, as
+    csrc/flash_attn_fwd_bf16_plan.h fills them; made once a shape."""
+    lib = _bf16_lib()
+    plan = (ctypes.c_longlong * lib.fwd_bf16_plan_len())(*inputs)
+    work = lib.fwd_bf16_plan(plan, sms)
+    if work < 0:
+        raise ValueError(f"fwd_bf16_plan takes no plan for {inputs}")
+    return plan, work
+
+
+def bf16_plan_value(plan: ctypes.Array, name: str) -> int:
+    """One field the header filled (BF16_PLAN_OUTPUTS), e.g. "SPLITS"."""
+    return plan[len(BF16_PLAN_FIELDS) + BF16_PLAN_OUTPUTS.index(name)]
+
+
 def _check(name: str, t: torch.Tensor, shape, device,
            dtype: torch.dtype = torch.float32) -> None:
     """`dtype` on `device`, of `shape`, rows contiguous, strides and address
@@ -206,17 +251,17 @@ def flash_attention_cuda(
     num_heads: int,
     d_att: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel (fp32 or bf16 q, k, v). q, k, v may be
-    strided views (the LT ring's live prefix) as long as each token's
-    channels are contiguous. Raises on any input it does not take, and if
-    the launch fails."""
+    """Launch the CUDA kernel of q's dtype (fp32 or bf16 q, k, v). q, k, v
+    may be strided views (the LT ring's live prefix) as long as each
+    token's channels are contiguous. Raises on any input it does not take,
+    and if the launch fails."""
     global LAUNCHES, BF16_LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: q is on {q.device}")
     dt = q.dtype
-    if dt not in _ENTRY:
-        raise ValueError(f"flash_attention_cuda: q is {dt}; the kernel takes "
-                         f"{sorted(str(t) for t in _ENTRY)}")
+    if dt not in _VEC:
+        raise ValueError(f"flash_attention_cuda: q is {dt}; the kernels take "
+                         f"{sorted(str(t) for t in _VEC)}")
     b, lq, _ = q.shape
     lk = k.shape[1]
     h = num_heads
@@ -242,6 +287,11 @@ def flash_attention_cuda(
     elif valid_len is not None:
         valid_all = max(0, min(int(valid_len), lk))
 
+    if dt == torch.bfloat16:
+        out, lse = _launch_bf16(q, k, v, valid_ptr, valid_all, b, lq, lk, h, d,
+                                dv)
+        BF16_LAUNCHES += 1
+        return out, lse
     splits, score_splits, slab, scratch = fwd_plan(b, lq, lk, h, dv,
                                                    sm_count(dev))
     part = (torch.empty(scratch, device=dev, dtype=torch.float32)
@@ -257,11 +307,29 @@ def flash_attention_cuda(
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"{_ENTRY[dt]} failed to launch: CUDA error {err}")
-    if dt == torch.bfloat16:
-        BF16_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+            f"flash_attn_fwd failed to launch: CUDA error {err}")
+    LAUNCHES += 1
+    return out, lse
+
+
+def _launch_bf16(q, k, v, valid_ptr, valid_all: int, b: int, lq: int,
+                 lk: int, h: int, d: int, dv: int):
+    """The bf16 kernel's launch, the inputs checked. Raises if it fails."""
+    dev = q.device
+    plan, work_bytes = bf16_launch_plan((b, h, lq, lk, d, dv), sm_count(dev))
+    work = (torch.empty(work_bytes, device=dev, dtype=torch.uint8)
+            if work_bytes else None)
+    out = torch.empty((b, lq, h * dv), device=dev, dtype=q.dtype)
+    lse = torch.empty((b * h, lq), device=dev, dtype=torch.float32)
+    err = _bf16_lib().flash_attn_fwd_bf16(
+        plan, q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr,
+        out.data_ptr(), lse.data_ptr(),
+        None if work is None else work.data_ptr(), valid_all, q.stride(0),
+        q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attn_fwd_bf16 failed to launch: CUDA error {err}")
     return out, lse
 
 

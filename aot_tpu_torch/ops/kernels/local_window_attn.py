@@ -1,14 +1,16 @@
-"""Local-window attention: the CUDA kernel and its plain PyTorch version.
+"""Local-window attention: the CUDA kernels and their plain PyTorch version.
 
-One kernel, csrc/local_window_attn_tc.cu, ports both TPU kernels of
-aot_tpu/ops/pallas/local_window_attn.py that serve dilation 1:
-local_window_attention_flat (:475, kernel body `_kernel_flat` :414; the
-grids up to 2,500 query tokens) and local_window_attention_wide (:294,
-`_kernel_wide` :236; the full-resolution grids above). Its header says what
-bounds it on Hopper. ops/attention.py keeps the JAX package's two routes
+Two kernels port both TPU kernels of aot_tpu/ops/pallas/local_window_attn.py
+that serve dilation 1: local_window_attention_flat (:475, kernel body
+`_kernel_flat` :414; the grids up to 2,500 query tokens) and
+local_window_attention_wide (:294, `_kernel_wide` :236; the full-resolution
+grids above): csrc/local_window_attn_tc.cu for fp32 q, k, v (3xTF32, the
+launch plan of `launch_plan`) and csrc/local_window_attn_bf16.cu for bf16
+ones (bf16 products; its launch plan is csrc/local_window_attn_bf16_plan.h's,
+read through `bf16_launch_plan`). Each source's header says what bounds it
+on Hopper. ops/attention.py keeps the JAX package's two routes
 (`local_route`), each with its own wrapper and launch count, so a run shows
-which grids went where; both launch the same kernel with the plan of
-`launch_plan` for their grid.
+which grids went where; both launch the kernel of q's dtype.
 
   local_window_attention             entry point: a CPU tensor takes the
                                      plain version, a CUDA tensor launches
@@ -22,16 +24,21 @@ which grids went where; both launch the same kernel with the plan of
                                      the win² shifted slices of the
                                      zero-padded image (F.unfold), no
                                      (HW x HW) tensor
-  launch_plan                        passes, tile rows and grid of a
-                                     launch, from the shapes and the card's
+  launch_plan                        the fp32 kernel's passes, tile rows and
+                                     grid, from the shapes and the card's
                                      multiprocessor count
+  bf16_launch_plan                   the bf16 kernel's plan, as its header
+                                     fills it (the CPU tests build that
+                                     header alone:
+                                     tests/test_torch_port_bf16_fwd.py)
 
 Layouts: q, k (B, HW, h*d); v (B, HW, h*dv); rel_bias (B, h, HW, win²);
 rel_v (h, dv, win²) or None; out (B, HW, h*dv).
-Types: q, k, v and out fp32, or bf16 (bf16 serving: the kernel's bf16
-instantiation); rel_bias and rel_v fp32. Both versions compute in fp32
-(bf16 inputs widened exactly) and write out in q's dtype, as the TPU
-kernels do (local_window_attn.py:420-469).
+Types: q, k, v and out fp32, or bf16 (bf16 serving); rel_bias and rel_v
+fp32. All three compute in fp32 (bf16 inputs widened exactly; the bf16
+kernel's products are exact in fp32 and it keeps P to ~2^-16 as a bf16
+pair) and write out in q's dtype, as the TPU kernels do
+(local_window_attn.py:420-469).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from aot_tpu_torch.ops.kernels import _build
+from aot_tpu_torch.ops.kernels.flash_attn import sm_count
 
 NEG_INF = -1e30
 MAX_DIS = 7       # window of at most 15 x 15 slots: 16 + 2*7 halo keys fit
@@ -60,7 +68,7 @@ WIDE_LAUNCHES = 0         # the wide route (above it), fp32
 BF16_LAUNCHES = 0         # the flat route, bf16
 WIDE_BF16_LAUNCHES = 0    # the wide route, bf16
 
-# csrc/local_window_attn_tc.cu's geometry
+# csrc/local_window_attn_tc.cu's geometry (the fp32 kernel)
 TILE_X = 16           # queries a tile row (the mma tile's rows)
 HALO = 32             # halo keys a row
 ONE_PASS_MAX = 128    # d or dv above: two passes (scores once, then P V)
@@ -185,13 +193,13 @@ def launch_plan(b: int, h: int, hgt: int, wid: int, d: int, dv: int,
     return LaunchPlan(tuple(rows), tuple(blocks), scratch)
 
 
-# the C entry point of each q/k/v/out type
-_ENTRY = {torch.float32: "local_window_attn_tc_fwd",
-          torch.bfloat16: "local_window_attn_tc_fwd_bf16"}
+# the fp32 kernel's C entry point
+_ENTRY = {torch.float32: "local_window_attn_tc_fwd"}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _entry(dtype: torch.dtype):
-    """The kernel's instantiation for q/k/v/out of `dtype`."""
+    """The fp32 kernel's C entry (`dtype` float32)."""
     fn = getattr(_build.load("local_window_attn_tc"), _ENTRY[dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
@@ -199,6 +207,47 @@ def _entry(dtype: torch.dtype):
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+# The bf16 kernel's plan: its inputs, in the order of
+# csrc/local_window_attn_bf16_plan.h's PlanField; the header fills the rest
+# (BF16_PLAN_OUTPUTS) and alone owns the rule
+BF16_PLAN_FIELDS = ("B", "H", "HEIGHT", "WIDTH", "D", "DV", "MAX_DIS",
+                    "REL_V")
+BF16_PLAN_OUTPUTS = ("ROWS", "VALUE_TILE", "WARPS", "TILES_X", "TILES",
+                     "VALUE_TILES", "BLOCKS", "D_PAD", "LD_S", "LD_Q",
+                     "LD_V", "LD_RV", "Q_OFF", "REGION_OFF", "SMEM",
+                     "COPY")
+
+
+def _bf16_lib() -> ctypes.CDLL:
+    """csrc/local_window_attn_bf16.cu's library, its entries bound."""
+    lib = _build.load("local_window_attn_bf16")
+    if lib.lwa_bf16_plan.argtypes is None:
+        lib.lwa_bf16_plan.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.lwa_bf16_plan.restype = ctypes.c_longlong
+        lib.local_window_attn_bf16.argtypes = ([ctypes.c_void_p] * 7
+                                               + [ctypes.c_float,
+                                                  ctypes.c_void_p])
+        lib.local_window_attn_bf16.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def bf16_launch_plan(inputs: Tuple[int, ...], sms: int) -> ctypes.Array:
+    """The bf16 kernel's `plan` for `inputs` (BF16_PLAN_FIELDS' values) on
+    a card of `sms` multiprocessors, as csrc/local_window_attn_bf16_plan.h
+    fills it; made once a shape."""
+    lib = _bf16_lib()
+    plan = (ctypes.c_longlong * lib.lwa_bf16_plan_len())(*inputs)
+    if lib.lwa_bf16_plan(plan, sms) < 0:
+        raise ValueError(f"lwa_bf16_plan takes no plan for {inputs}")
+    return plan
+
+
+def bf16_plan_value(plan: ctypes.Array, name: str) -> int:
+    """One field the header filled (BF16_PLAN_OUTPUTS), e.g. "ROWS"."""
+    return plan[len(BF16_PLAN_FIELDS) + BF16_PLAN_OUTPUTS.index(name)]
 
 
 def _check(fn: str, name: str, t: torch.Tensor, shape, device,
@@ -238,15 +287,29 @@ def _launch(fn: str, q, k, v, rel_bias, rel_v, num_heads, size_2d, max_dis,
                          f"{v.shape[-1]})")
     dev = q.device
     dt = q.dtype
-    if dt not in _ENTRY:
-        raise ValueError(f"{fn}: q is {dt}; the kernel takes "
-                         f"{sorted(str(t) for t in _ENTRY)}")
+    if dt not in _DTYPES:
+        raise ValueError(f"{fn}: q is {dt}; the kernels take "
+                         f"{sorted(str(t) for t in _DTYPES)}")
     _check(fn, "q", q, (b, hw, h * d), dev, dt)
     _check(fn, "k", k, (b, hw, h * d), dev, dt)
     _check(fn, "v", v, (b, hw, h * dv), dev, dt)
     _check(fn, "rel_bias", rel_bias, (b, h, hw, win2), dev, torch.float32)
     if rel_v is not None:
         _check(fn, "rel_v", rel_v, (h, dv, win2), dev, torch.float32)
+    if dt == torch.bfloat16:
+        plan = bf16_launch_plan(
+            (b, h, hgt, wid, d, dv, max_dis, int(rel_v is not None)),
+            sm_count(dev))
+        out = torch.empty((b, hw, h * dv), device=dev, dtype=dt)
+        err = _bf16_lib().local_window_attn_bf16(
+            plan, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            rel_bias.data_ptr(), None if rel_v is None else rel_v.data_ptr(),
+            out.data_ptr(), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"local_window_attn_bf16 failed to launch: CUDA error {err}")
+        return out
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = launch_plan(b, h, hgt, wid, d, dv, max_dis, sms)
     scratch = (torch.empty(plan.scratch_floats, device=dev,
@@ -277,7 +340,8 @@ def local_window_attention_cuda(
     max_dis: int = 7,
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
-    """The flat route: launch the CUDA kernel (dilation 1, fp32 or bf16).
+    """The flat route: launch the CUDA kernel of q's dtype (dilation 1,
+    fp32 or bf16).
     Raises on any input it does not take, and if the launch fails."""
     global LAUNCHES, BF16_LAUNCHES
     out = _launch("local_window_attention_cuda", q, k, v, rel_bias, rel_v,
@@ -301,8 +365,8 @@ def local_window_attention_wide_cuda(
     max_dis: int = 7,
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
-    """The wide route: the same kernel, counted apart (dilation 1, fp32 or
-    bf16). Raises on any input it does not take, and if the launch fails."""
+    """The wide route: the same kernels, counted apart (dilation 1, fp32
+    or bf16). Raises on any input it does not take, and if the launch fails."""
     global WIDE_LAUNCHES, WIDE_BF16_LAUNCHES
     out = _launch("local_window_attention_wide_cuda", q, k, v, rel_bias,
                   rel_v, num_heads, size_2d, max_dis, d_att)

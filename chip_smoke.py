@@ -10,6 +10,7 @@ PyTorch built for CUDA:
     python3 chip_smoke.py --profile-train MODEL [--dtype D] [--batch N]
                           [--trainable-bn]
     python3 chip_smoke.py --profile-bwd
+    python3 chip_smoke.py --profile-fwd
 
 The second form profiles phase 12's evaluation and runs nothing else
 (`profile_full_res_eval`); the third profiles a model's serving path, as
@@ -17,7 +18,8 @@ phases 6, 14 and 16 run it (with --batch N: N videos a step, as phase 21),
 before and after the flash switch (`profile_serving`); the fourth a
 training step, as phases 10, 25, 26 and 28 run it (`profile_training`); the
 fifth the flash backward's kernels one by one at phase 9's and 24's shapes
-(`profile_bwd`).
+(`profile_bwd`); the sixth the bf16 forward kernels (local window and
+flash) one by one at phase 19's shapes (`profile_fwd`).
 
 Phases (2, 3, 8, 9, 19, 23 and 24, the kernel checks, run first, then 4
 to 7, then 10 to 18, then 20 to 22, then 25 to 31); any failure raises and
@@ -147,19 +149,23 @@ the exit code is non-zero:
      per variant the output checks, the grid, the launches by kernel
      (asserted against the LT schedule), the median ms/frame, the peak
      memory, and the reference repository's 1xV100 FPS labelled as that.
- 19. the bf16 instantiations (bf16 serving) against their bf16 plain
-     versions (max abs error <= 1e-2 of the largest entry; the plain
-     versions widen to fp32, the flash one rounds P to bf16): the
-     local-window kernel at the AOT and DeAOT heads at 30x30 with B = 1 and
-     4 (flat route) and at 64x113 (wide route), the flash forward over
-     AOTT-shaped LT rings (Lq=900, Lk=7,200, h=8, d=32, live 900 to 7,200)
-     and DeAOTL's (Lq=900, Lk=19,800, d=128, dv=1024) with B = 1 and 4;
-     each timed beside the bf16 plain version, bf16
-     F.scaled_dot_product_attention (its backend named; the DeAOT local
-     head with the dense window bias) and the bound at the bf16 rate
-     (max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s)); at B = 4 also the fp32
-     kernels, checked and timed, and at DeAOT's local head fp32
-     F.scaled_dot_product_attention with the fp32 dense window bias.
+ 19. the bf16 kernels (csrc/local_window_attn_bf16.cu, bf16 serving;
+     csrc/flash_attn_fwd_bf16.cu, bf16 serving and training) against their
+     bf16 plain versions (max abs error <= 1e-2 of the largest entry, lse
+     within 1e-2; the plain versions widen to fp32, the flash one rounds P
+     to bf16), a second run bit-identical: the local-window kernel at the
+     AOT and DeAOT heads at 30x30 with B = 1 and 4 (flat route) and at
+     64x113 (wide route), the flash forward over AOTT-shaped LT rings
+     (Lq=900, Lk=7,200, h=8, d=32, live 900 to 7,200), DeAOTL's (Lq=900,
+     Lk=19,800, d=128, dv=1024) with B = 1 and 4 and at the training
+     shapes (AOTT B=16, h=8, L=900, d=dv=32; DeAOT's GPM self-attention
+     B=16, L=900, d=128, dv=1024, and its LT read at Lk=2,700), with NaN in
+     every dead key (the same bits: dead keys are never read), and an
+     element with no live key (out exactly 0, lse -1e30); each timed
+     beside the bf16 plain version, bf16 F.scaled_dot_product_attention
+     (its backend named; the DeAOT local head with the dense window bias),
+     the fp32 kernel at the same shape (checked at 1e-4) and the bound at
+     the bf16 rate (max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s)).
  20. bf16 serving (TEST_DTYPE=bfloat16): AOTT and DeAOTL as 4 and 6 on the
      same clip, ms/frame (median, p90) beside this call's fp32 runs, masks
      against the fp32 runs' (mean >= 99.5%, worst frame >= 99.0%),
@@ -335,14 +341,14 @@ KERNELS = {
     # the bf16 instantiations (bf16 serving), each with its own count
     "local_window_attn_bf16": ("local_window_attn", "BF16_LAUNCHES",
                                "aot_tpu/ops/pallas/local_window_attn.py:414",
-                               "local_window_attn_tc"),
+                               "local_window_attn_bf16"),
     "local_window_attn_wide_bf16": (
         "local_window_attn", "WIDE_BF16_LAUNCHES",
         "aot_tpu/ops/pallas/local_window_attn.py:236",
-        "local_window_attn_tc"),
+        "local_window_attn_bf16"),
     "flash_attn_fwd_bf16": ("flash_attn", "BF16_LAUNCHES",
                             "aot_tpu/ops/pallas/flash_attn_vjp.py:51",
-                            "flash_attn_fwd"),
+                            "flash_attn_fwd_bf16"),
     # the bf16 instantiation of the backward (bf16 training)
     "flash_attn_bwd_bf16": ("flash_attn_bwd", "BF16_LAUNCHES",
                             "aot_tpu/ops/pallas/flash_attn_vjp.py:267",
@@ -2318,6 +2324,9 @@ def profile_serving(card: str, model_name: str, batch: int = 1) -> int:
 # earlier mma.sync form's grad_qk_kernel and grad_t_kernel, so a profile of
 # an older tree reads the same share)
 FLASH_BWD_KERNELS = ("::bwd_", "grad_qk_kernel", "grad_t_kernel")
+# ... and the flash forward's (fp32 and bf16, this tree's and earlier ones')
+FLASH_FWD_KERNELS = ("::fwd_", "::score_kernel", "::pv_kernel",
+                     "::merge_kernel", "::sum_splits_kernel")
 
 
 def profile_training(card: str, model_name: str, dtype: str,
@@ -2375,14 +2384,16 @@ def profile_training(card: str, model_name: str, dtype: str,
     kernel = print_profile(prof, 2, f"{cfg.MODEL_NAME} {dtype}", "step")
     print(f"profile: the card busy {kernel / host:.0%} of the unprofiled "
           "median step", flush=True)
-    bwd = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-           and any(n in e.key for n in FLASH_BWD_KERNELS)]
-    bwd_ms = sum(e.self_device_time_total for e in bwd) / 1e3 / 2
-    names = sorted({e.key.split("<")[0].split("::")[-1] for e in bwd})
-    print(f"profile: the flash backward's kernels {bwd_ms:.3f} ms a step, "
-          f"{sum(e.count for e in bwd) / 2:.0f} launches, "
-          f"{bwd_ms / kernel:.1%} of the kernel time ({', '.join(names)})",
-          flush=True)
+    for what, keys in (("backward", FLASH_BWD_KERNELS),
+                       ("forward", FLASH_FWD_KERNELS)):
+        part = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+                and any(n in e.key for n in keys)]
+        ms = sum(e.self_device_time_total for e in part) / 1e3 / 2
+        names = sorted({e.key.split("<")[0].split("::")[-1] for e in part})
+        print(f"profile: the flash {what}'s kernels {ms:.3f} ms a step, "
+              f"{sum(e.count for e in part) / 2:.0f} launches, "
+              f"{ms / kernel:.1%} of the kernel time ({', '.join(names)})",
+              flush=True)
     return 0
 
 
@@ -2399,6 +2410,40 @@ BWD_PROFILE_SHAPES = (
     ("DeAOT LT read", torch.bfloat16, 16, 900, 2700, 1, 128, 1024))
 
 
+def profile_calls(tag: str, label: str, fn, runs: int, card: str) -> None:
+    """`runs` calls of `fn` after two warm-up calls under torch.profiler:
+    each kernel's device ms and launches a call, and the call's median on
+    CUDA events, printed with `tag`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call_ms = float(np.median(cuda_times_ms(fn, 4 * runs, 2)))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / runs
+    print(f"{tag}: {label}: a call {call_ms:.4f} ms on CUDA events, "
+          f"{total:.4f} ms of kernels under the profiler ({card})",
+          flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        ms = e.self_device_time_total / 1e3 / runs
+        print(f"{tag}:   {ms:9.4f} ms {e.count / runs:6.1f} "
+              f"launches  {e.key[:110]}", flush=True)
+
+
+def print_build_logs(names) -> None:
+    """The build's ptxas lines (registers, shared memory, spills) of each
+    source in `names` that this process built."""
+    from aot_tpu_torch.ops.kernels import _build
+
+    for name in names:
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            print(f"  nvcc {name}: {line}", flush=True)
+
+
 def profile_bwd(card: str, runs: int = 5) -> int:
     """--profile-bwd: where the flash backward's time goes, kernel by
     kernel, at BWD_PROFILE_SHAPES: `runs` calls of the wrapper after two
@@ -2406,15 +2451,12 @@ def profile_bwd(card: str, runs: int = 5) -> int:
     launches a call, and the call's total on CUDA events. Prints the
     build's ptxas lines (registers, spills) for every instantiation
     first."""
-    from torch.profiler import ProfilerActivity, profile
-
     from aot_tpu_torch.ops.kernels import _build
     from aot_tpu_torch.ops.kernels import flash_attn as fa
     from aot_tpu_torch.ops.kernels import flash_attn_bwd as fab
 
     _build.build("flash_attn_fwd", "flash_attn_bwd")
-    for line in _build.BUILD_LOGS.get("flash_attn_bwd", "").splitlines():
-        print(f"  nvcc flash_attn_bwd: {line}", flush=True)
+    print_build_logs(["flash_attn_bwd"])
     device = torch.device("cuda", 0)
     rng = np.random.RandomState(SEED + 6)
     for label, dt, b, lq, lk, h, d, dv in BWD_PROFILE_SHAPES:
@@ -2424,26 +2466,45 @@ def profile_bwd(card: str, runs: int = 5) -> int:
         dout = torch.tensor(rng.randn(b, lq, h * dv), dtype=dt,
                             device=device)
         args = (q, k, v, vl, out, lse, dout, h, d)
-        call_ms = float(np.median(cuda_times_ms(
-            lambda: fab.flash_attention_bwd_cuda(*args), runs, 2)))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fab.flash_attention_bwd_cuda(*args)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type.name == "CUDA"]
-        total = sum(e.self_device_time_total for e in kernels) / 1e3 / runs
-        print(f"profile-bwd: {label} {str(dt)[6:]} B={b} Lq={lq} Lk={lk} "
-              f"h={h} d={d} dv={dv}: a call {call_ms:.4f} ms on CUDA events, "
-              f"{total:.4f} ms of kernels under the profiler ({card})",
-              flush=True)
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-            ms = e.self_device_time_total / 1e3 / runs
-            print(f"profile-bwd:   {ms:9.4f} ms {e.count / runs:6.1f} "
-                  f"launches  {e.key[:110]}", flush=True)
+        profile_calls("profile-bwd", f"{label} {str(dt)[6:]} B={b} Lq={lq} "
+                      f"Lk={lk} h={h} d={d} dv={dv}",
+                      lambda: fab.flash_attention_bwd_cuda(*args), runs, card)
         del q, k, v, out, lse, dout, args
         torch.cuda.empty_cache()
+    return 0
+
+
+def profile_fwd(card: str, runs: int = 5) -> int:
+    """--profile-fwd: where the bf16 forward kernels' time goes, kernel by
+    kernel: the local-window kernel at BF16_LOCAL_SHAPES through its
+    route's wrapper, the flash forward at BF16_FLASH_SHAPES (profile_calls
+    each), then the build's ptxas lines of the sources they loaded. It
+    drives the wrappers only, so it also times an earlier tree's kernels
+    (this file run from that tree's root)."""
+    from aot_tpu_torch.ops.kernels import _build
+    from aot_tpu_torch.ops.kernels import flash_attn as fa
+    from aot_tpu_torch.ops.kernels import local_window_attn as lwa
+
+    device = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED + 7)
+    for label, b, hgt, wid, h, d, dv, rv in BF16_LOCAL_SHAPES:
+        args, _ = bf16_local_case(rng, b, hgt, wid, h, d, dv, rv, device)
+        kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=7, d_att=d)
+        kernel = (lwa.local_window_attention_wide_cuda if hgt * wid > 2500
+                  else lwa.local_window_attention_cuda)
+        profile_calls("profile-fwd", f"local {label} B={b} h={h} d={d} "
+                      f"dv={dv} rel_v={rv}", lambda: kernel(*args, **kw),
+                      runs, card)
+    for label, b, lq, lk, h, d, dv, valid in BF16_FLASH_SHAPES:
+        q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid, device)
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        profile_calls("profile-fwd", f"flash {label} B={b} Lq={lq} Lk={lk} "
+                      f"h={h} d={d} dv={dv} live {valid}",
+                      lambda: fa.flash_attention_cuda(q, k, v, vl, h, d),
+                      runs, card)
+        del q, k, v
+        torch.cuda.empty_cache()
+    print_build_logs(sorted(_build.BUILD_LOGS))
     return 0
 
 
@@ -2522,6 +2583,29 @@ def check_attn_knobs(kernels, device, card: str):
 # --- phases 19-22: bf16, batched and chunked serving ----------------------
 
 
+# phase 19's and --profile-fwd's shapes of the bf16 forward kernels: the
+# local-window kernel at the AOT head (h=8, d=dv=32, rel_v) and DeAOT's
+# (h=1, d=128, dv=1024) at 30x30 with B = 1 and 4 (flat route; B = 4 is
+# `--video_batch 4` serving) and at 64x113 (wide route)
+BF16_LOCAL_SHAPES = (("AOT head 30x30", 1, 30, 30, 8, 32, 32, True),
+                     ("AOT head 30x30", 4, 30, 30, 8, 32, 32, True),
+                     ("DeAOT head 30x30", 1, 30, 30, 1, 128, 1024, False),
+                     ("DeAOT head 30x30", 4, 30, 30, 1, 128, 1024, False),
+                     ("AOT head 64x113", 1, 64, 113, 8, 32, 32, True),
+                     ("DeAOT head 64x113", 1, 64, 113, 1, 128, 1024, False))
+# ... and the flash forward over AOTT-shaped LT rings and DeAOTL's (live
+# key lists: a (B,) valid_len), then at the training shapes of
+# BF16_BWD_SHAPES (every key live)
+BF16_FLASH_SHAPES = (
+    ("AOTT ring live 900", 1, 900, 7200, 8, 32, 32, [900]),
+    ("AOTT ring live 7200", 1, 900, 7200, 8, 32, 32, [7200]),
+    ("AOTT ring", 4, 900, 7200, 8, 32, 32, [900, 2700, 5400, 7200]),
+    ("DeAOTL LT", 1, 900, 19800, 1, 128, 1024, [19800]),
+    ("DeAOTL LT", 4, 900, 19800, 1, 128, 1024, [19800, 14400, 9000, 4500]),
+) + tuple((label, b, lq, lk, h, d, dv, None)
+          for label, b, lq, lk, h, d, dv in BF16_BWD_SHAPES)
+
+
 def rel_err(got, want) -> float:
     """max |got - want| over the largest |want|."""
     return ((got.float() - want.float()).abs().max()
@@ -2537,27 +2621,23 @@ def bf16_local_case(rng, b, hgt, wid, h, d, dv, rv, device):
 
 
 def check_bf16_kernels(lwa, fa, device, card: str):
-    """Phase 19: the bf16 instantiations against their bf16 plain versions
-    on the card (gate BF16_TOL of the largest entry), timed beside the bf16
-    plain version, bf16 F.scaled_dot_product_attention (its backend named)
-    and the bound at the bf16 rate; and the fp32 kernels at B = 4 at the
-    same shapes. Returns ({bf16 kernel: worst error}, {bf16 kernel: (ms,
+    """Phase 19: the bf16 kernels against their bf16 plain versions on the
+    card (gate BF16_TOL of the largest entry; lse within BF16_TOL), a
+    second run bit-identical, timed beside the bf16 plain version, bf16
+    F.scaled_dot_product_attention (its backend named), the fp32 kernel
+    and the bound at the bf16 rate, at BF16_LOCAL_SHAPES and
+    BF16_FLASH_SHAPES; the flash forward also with NaN in every dead key
+    (never read: the same bits) and with an element of no live key (out 0,
+    lse -1e30). Returns ({bf16 kernel: worst error}, {bf16 kernel: (ms,
     plain ms, library ms or None, (bound ms, by))} at the JSON line's
     shapes)."""
     import torch.nn.functional as F
 
     rng = np.random.RandomState(SEED + 3)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     worst = {"local_window_attn_bf16": 0.0, "local_window_attn_wide_bf16": 0.0,
              "flash_attn_fwd_bf16": 0.0}
     times = {}
-    for label, b, hgt, wid, h, d, dv, rv in (
-            ("AOT head 30x30", 1, 30, 30, 8, 32, 32, True),
-            ("AOT head 30x30", 4, 30, 30, 8, 32, 32, True),
-            ("DeAOT head 30x30", 1, 30, 30, 1, 128, 1024, False),
-            ("DeAOT head 30x30", 4, 30, 30, 1, 128, 1024, False),
-            ("AOT head 64x113", 1, 64, 113, 8, 32, 32, True),
-            ("DeAOT head 64x113", 1, 64, 113, 1, 128, 1024, False)):
+    for label, b, hgt, wid, h, d, dv, rv in BF16_LOCAL_SHAPES:
         args, f32 = bf16_local_case(rng, b, hgt, wid, h, d, dv, rv, device)
         kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=7, d_att=d)
         wide = hgt * wid > 2500
@@ -2567,14 +2647,24 @@ def check_bf16_kernels(lwa, fa, device, card: str):
                   else lwa.local_window_attention_cuda)
         want = lwa.local_window_attention_plain(*args, **kw)
         got = kernel(*args, **kw)
+        again = kernel(*args, **kw)
         torch.cuda.synchronize()
         err = rel_err(got, want)
         if got.dtype != torch.bfloat16 or not err <= BF16_TOL:
             raise AssertionError(f"phase 19 local {label} B={b}: {got.dtype}"
                                  f", error {err} > {BF16_TOL}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"phase 19 local {label} B={b}: two runs "
+                                 "differ")
         worst[kname] = max(worst[kname], err)
+        e32 = (kernel(*f32, **kw) - lwa.local_window_attention_plain(
+            *f32, **kw)).abs().max().item()
+        if not e32 <= KERNEL_TOL:
+            raise AssertionError(f"phase 19 fp32 local {label} B={b}: {e32}")
         fns = {"plain": lambda: lwa.local_window_attention_plain(*args, **kw),
-               "kernel": lambda: kernel(*args, **kw)}
+               "kernel": lambda: kernel(*args, **kw),
+               "fp32 kernel": lambda: kernel(*f32, **kw)}
+        lib = ""
         if not rv:
             q, k, v, rel_bias, _ = args
             split = lambda x, c: x.reshape(b, -1, h, c).transpose(1, 2)
@@ -2583,59 +2673,35 @@ def check_bf16_kernels(lwa, fa, device, card: str):
             bias = dense_window_bias(rel_bias, hgt, wid, 7).to(torch.bfloat16)
             fns["library"] = lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=bias)
-            if b == 4:   # fp32 SDPA with the fp32 bias: row 1's yardstick
-                q32, k32, v32, rb32, _ = f32
-                qs32, ks32, vs32 = (split(q32, d).contiguous(),
-                                    split(k32, d).contiguous(),
-                                    split(v32, dv).contiguous())
-                bias32 = dense_window_bias(rb32, hgt, wid, 7)
-                fns["fp32 library"] = lambda: F.scaled_dot_product_attention(
-                    qs32, ks32, vs32, attn_mask=bias32)
-        if b == 4:   # the fp32 kernel at the same shape
-            fns["fp32 kernel"] = lambda: kernel(*f32, **kw)
+            lib_backend = sdpa_backend(qs, ks, vs, bias)
         t = time_fns(fns, *((20, 3) if wide or b > 1 else ()))
-        b_ms, b_by = local_bound(b, hgt, wid, h, d, dv, rv, bf16=True)
-        lib = ""
-        if "library" in fns:
+        if not rv:
             lib = (f", bf16 F.scaled_dot_product_attention with the dense "
-                   f"window bias ({sdpa_backend(qs, ks, vs, bias)}) "
-                   f"{t['library']:.4f} ms")
-            del bias
-        fp32 = ""
-        if "fp32 kernel" in fns:
-            e32 = (kernel(*f32, **kw) - lwa.local_window_attention_plain(
-                *f32, **kw)).abs().max().item()
-            if not e32 <= KERNEL_TOL:
-                raise AssertionError(f"phase 19 fp32 local {label} B=4: {e32}")
-            fp32 = (f"; the fp32 kernel {t['fp32 kernel']:.4f} ms (max_abs_err"
-                    f" {e32:.2e}, fp32 bound "
-                    f"{local_bound(b, hgt, wid, h, d, dv, rv)[0]:.4f} ms)")
-            if "fp32 library" in fns:
-                backend32 = sdpa_backend(qs32, ks32, vs32, bias32)
-                fp32 += (f", fp32 F.scaled_dot_product_attention with the "
-                         f"dense window bias ({backend32}) "
-                         f"{t['fp32 library']:.4f} ms")
-                del bias32
-        plan = lwa.launch_plan(b, h, hgt, wid, d, dv, 7, sms)
+                   f"window bias ({lib_backend}) {t['library']:.4f} ms")
+            del bias, qs, ks, vs
+        b_ms, b_by = local_bound(b, hgt, wid, h, d, dv, rv, bf16=True)
+        plan = lwa.bf16_launch_plan((b, h, hgt, wid, d, dv, 7, int(rv)),
+                                    fa.sm_count(device))
+        rows, vt, blocks = (lwa.bf16_plan_value(plan, n) for n in
+                            ("ROWS", "VALUE_TILE", "BLOCKS"))
         print(f"phase 19: {kname} {label} B={b} h={h} d={d} dv={dv} rel_v={rv}"
-              f" (passes {plan.passes}, rows {plan.rows}): error {err:.3e} of "
-              f"the largest entry (gate {BF16_TOL}); kernel {t['kernel']:.4f} "
-              f"ms, bf16 plain {t['plain']:.4f} ms{lib}; bound {b_ms:.4f} ms "
-              f"({b_by}){fp32} ({card})", flush=True)
+              f" (rows {rows}, value tile {vt}, {blocks} blocks): error "
+              f"{err:.3e} of the largest entry (gate {BF16_TOL}), a second "
+              f"run bit-identical; kernel {t['kernel']:.4f} ms, bf16 plain "
+              f"{t['plain']:.4f} ms{lib}; bound {b_ms:.4f} ms ({b_by}); the "
+              f"fp32 kernel {t['fp32 kernel']:.4f} ms (max_abs_err "
+              f"{e32:.2e}, fp32 bound "
+              f"{local_bound(b, hgt, wid, h, d, dv, rv)[0]:.4f} ms) ({card})",
+              flush=True)
         if b == 1 and h == 8:     # the JSON line's shapes: AOTT's ST reads
             times[kname] = (t["kernel"], t["plain"], t.get("library"),
                             (b_ms, b_by))
-    for label, b, lq, lk, h, d, dv, valid in (
-            ("AOTT ring live 900", 1, 900, 7200, 8, 32, 32, [900]),
-            ("AOTT ring live 7200", 1, 900, 7200, 8, 32, 32, [7200]),
-            ("AOTT ring", 4, 900, 7200, 8, 32, 32, [900, 2700, 5400, 7200]),
-            ("DeAOTL LT", 1, 900, 19800, 1, 128, 1024, [19800]),
-            ("DeAOTL LT", 4, 900, 19800, 1, 128, 1024,
-             [19800, 14400, 9000, 4500])):
+    for label, b, lq, lk, h, d, dv, valid in BF16_FLASH_SHAPES:
         q32, k32, v32, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid,
                                          device)
         q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
         out, lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
+        out2, lse2 = fa.flash_attention_cuda(q, k, v, vl, h, d)
         want, want_lse = fa.flash_attention_plain(q, k, v, vl, h, d)
         torch.cuda.synchronize()
         err = rel_err(out, want)
@@ -2644,41 +2710,77 @@ def check_bf16_kernels(lwa, fa, device, card: str):
                                                err_lse <= BF16_TOL):
             raise AssertionError(f"phase 19 flash {label} B={b}: {out.dtype}, "
                                  f"errors {err}, {err_lse}")
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"phase 19 flash {label} B={b}: two runs "
+                                 "differ")
+        live = [lk] * b if vl is None else vl.tolist()
+        dead = ""
+        if min(live) < lk:   # NaN in every dead key: never read
+            kn, vn = k.clone(), v.clone()
+            for i, n in enumerate(live):
+                kn[i, n:] = float("nan")
+                vn[i, n:] = float("nan")
+            outn, lsen = fa.flash_attention_cuda(q, kn, vn, vl, h, d)
+            if not (torch.equal(outn, out) and torch.equal(lsen, lse)):
+                raise AssertionError(f"phase 19 flash {label} B={b}: NaN in "
+                                     "dead keys moved the output")
+            dead = ", NaN in the dead keys: the same bits"
+            del kn, vn, outn, lsen
         worst["flash_attn_fwd_bf16"] = max(worst["flash_attn_fwd_bf16"], err)
-        del want, want_lse
+        del want, want_lse, out2, lse2
+        e32 = max(a.sub(w).abs().max().item() for a, w in zip(
+            fa.flash_attention_cuda(q32, k32, v32, vl, h, d),
+            fa.flash_attention_plain(q32, k32, v32, vl, h, d)))
+        if not e32 <= KERNEL_TOL:
+            raise AssertionError(f"phase 19 fp32 flash {label} B={b}: {e32}")
         qs, ks, vs, mask = sdpa_args(q, k, v, vl, h, d)
         fns = {"plain": lambda: fa.flash_attention_plain(q, k, v, vl, h, d),
                "kernel": lambda: fa.flash_attention_cuda(q, k, v, vl, h, d),
                "library": lambda: F.scaled_dot_product_attention(
-                   qs, ks, vs, attn_mask=mask)}
-        if b == 4:
-            fns["fp32 kernel"] = lambda: fa.flash_attention_cuda(
-                q32, k32, v32, vl, h, d)
+                   qs, ks, vs, attn_mask=mask),
+               "fp32 kernel": lambda: fa.flash_attention_cuda(
+                   q32, k32, v32, vl, h, d)}
         t = time_fns(fns, *((20, 3) if dv > 128 or b > 1 else ()))
-        b_ms, b_by = flash_fwd_bound_live(lq, vl.tolist(), h, d, dv, True)
-        fp32 = ""
-        if b == 4:
-            e32 = max(a.sub(w).abs().max().item() for a, w in zip(
-                fa.flash_attention_cuda(q32, k32, v32, vl, h, d),
-                fa.flash_attention_plain(q32, k32, v32, vl, h, d)))
-            if not e32 <= KERNEL_TOL:
-                raise AssertionError(f"phase 19 fp32 flash {label} B=4: {e32}")
-            fp32 = (f"; the fp32 kernel {t['fp32 kernel']:.4f} ms (max_abs_err"
-                    f" {e32:.2e}, fp32 bound "
-                    f"{flash_fwd_bound_live(lq, vl.tolist(), h, d, dv)[0]:.4f}"
-                    f" ms)")
+        b_ms, b_by = flash_fwd_bound_live(lq, live, h, d, dv, True)
+        plan, _ = fa.bf16_launch_plan((b, h, lq, lk, d, dv),
+                                      fa.sm_count(device))
+        splits, blocks = (fa.bf16_plan_value(plan, n)
+                          for n in ("SPLITS", "BLOCKS"))
         print(f"phase 19: flash_attn_fwd_bf16 {label} B={b} Lq={lq} Lk={lk} "
-              f"h={h} d={d} dv={dv} live {vl.tolist()} (plan "
-              f"{fwd_plan(fa, b, lq, lk, h, dv, device)}): error {err:.3e} of "
-              f"the largest entry, lse {err_lse:.1e} (gate {BF16_TOL}); kernel "
-              f"{t['kernel']:.4f} ms, bf16 plain {t['plain']:.4f} ms, bf16 "
-              f"F.scaled_dot_product_attention with a boolean live-key mask "
-              f"({sdpa_backend(qs, ks, vs, mask)}) {t['library']:.4f} ms; "
-              f"bound {b_ms:.4f} ms ({b_by}){fp32} ({card})", flush=True)
+              f"h={h} d={d} dv={dv} live {valid} ({blocks} blocks, {splits} "
+              f"key splits): error {err:.3e} of the largest entry, lse "
+              f"{err_lse:.1e} (gate {BF16_TOL}), a second run bit-identical"
+              f"{dead}; kernel {t['kernel']:.4f} ms, bf16 plain "
+              f"{t['plain']:.4f} ms, bf16 F.scaled_dot_product_attention with "
+              f"a boolean live-key mask ({sdpa_backend(qs, ks, vs, mask)}) "
+              f"{t['library']:.4f} ms; bound {b_ms:.4f} ms ({b_by}); the fp32 "
+              f"kernel {t['fp32 kernel']:.4f} ms (max_abs_err {e32:.2e}, fp32 "
+              f"bound {flash_fwd_bound_live(lq, live, h, d, dv)[0]:.4f} ms) "
+              f"({card})", flush=True)
         if label == "DeAOTL LT" and b == 1:
             times["flash_attn_fwd_bf16"] = (t["kernel"], t["plain"],
                                             t["library"], (b_ms, b_by))
-        del q, k, v, q32, k32, v32, qs, ks, vs
+        del q, k, v, q32, k32, v32, qs, ks, vs, out, lse
+        torch.cuda.empty_cache()
+    # an element with no live key (and one whose live keys end mid-tile):
+    # out exactly 0 and lse -1e30 for the first, at both widths
+    for h, d, dv in ((8, 32, 32), (1, 128, 1024)):
+        q, k, v, vl = flash_inputs(rng, 2, 300, 1000, h, d, dv, [0, 613],
+                                   device)
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        out, lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
+        want, want_lse = fa.flash_attention_plain(q, k, v, vl, h, d)
+        torch.cuda.synchronize()
+        if not (torch.all(out[0] == 0) and torch.all(lse[:h] == fa.NEG_INF)
+                and rel_err(out[1], want[1]) <= BF16_TOL
+                and (lse[h:] - want_lse[h:]).abs().max().item() <= BF16_TOL):
+            raise AssertionError(f"phase 19 flash empty row h={h} d={d} "
+                                 f"dv={dv}: {out[0].abs().max().item()}, "
+                                 f"{lse[:h].max().item()}")
+        print(f"phase 19: flash_attn_fwd_bf16 B=2 Lq=300 Lk=1000 h={h} d={d} "
+              f"dv={dv} live [0, 613]: the empty element's out exactly 0 and "
+              f"lse -1e30, the other's error {rel_err(out[1], want[1]):.3e} "
+              f"({card})", flush=True)
     return worst, times
 
 
@@ -3076,6 +3178,10 @@ def main() -> int:
                         help="profile the flash backward's kernels at the "
                              "training and long-read shapes instead of "
                              "running the phases")
+    parser.add_argument("--profile-fwd", action="store_true",
+                        help="profile the bf16 forward kernels (local "
+                             "window and flash) at phase 19's shapes "
+                             "instead of running the phases")
     parser.add_argument("--dtype", default="bfloat16",
                         help="with --profile-train: TRAIN_DTYPE")
     parser.add_argument("--trainable-bn", action="store_true",
@@ -3123,6 +3229,8 @@ def main() -> int:
         return profile_serving(card, args.profile_serve, args.batch or 1)
     if args.profile_bwd:
         return profile_bwd(card)
+    if args.profile_fwd:
+        return profile_fwd(card)
     if args.profile_train:
         return profile_training(card, args.profile_train, args.dtype,
                                 args.batch or TRAIN_BATCH, args.trainable_bn)
@@ -3130,15 +3238,14 @@ def main() -> int:
     # phase 1
     t0 = time.perf_counter()
     sos = _build.build(*sources)
-    for dt in (torch.float32, torch.bfloat16):
-        lwa._entry(dt)
-        fa._entry(dt)
+    lwa._entry(torch.float32)
+    fa._entry(torch.float32)
+    lwa._bf16_lib()
+    fa._bf16_lib()
     fab._lib()
     print(f"phase 1: built {', '.join(os.path.relpath(s) for s in sos)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name in sources:
-        for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            print(f"  nvcc {name}: {line}", flush=True)
+    print_build_logs(sources)
 
     # phases 2, 3, 8, 9, 19
     max_err = check_kernel_numerics(lwa, fa, device)
