@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from aot_tpu_torch.utils.weights import load_model
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Eval VOS (PyTorch, one GPU)")
@@ -121,36 +123,6 @@ def resolve_checkpoint(args: argparse.Namespace, cfg) -> Optional[str]:
     return ckpt_lib.latest_checkpoint(ckpt_dir)
 
 
-def load_model(cfg, args: argparse.Namespace, device):
-    """The serving model with the weights the arguments name. The model
-    is always built with frozen BN (aot_tpu/models/aot.py:343-345); a
-    checkpoint of a trainable-BN run has the same keys (its BN weight,
-    bias and running stats) and loads into it strictly."""
-    from aot_tpu_torch.models import build_vos_model
-    from aot_tpu_torch.utils import checkpoint as ckpt_lib
-    from aot_tpu_torch.utils.weights import load_reference_state_dict
-
-    model = build_vos_model(cfg, device=device)
-    if args.ckpt_path == "test":
-        print("[eval] ckpt-less smoke mode: random weights", flush=True)
-        return model
-    path = resolve_checkpoint(args, cfg)
-    if path is None or not os.path.isfile(path):
-        raise FileNotFoundError(f"no checkpoint at {path!r}")
-    if not path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: aot_tpu_torch loads .pth state dicts")
-    blob = ckpt_lib.load_checkpoint(path, "cpu")
-    # the trainer's raw stream {'model': ...}, its EMA stream
-    # {'state_dict': ...}, or a reference-keyed state dict as it is
-    sd = blob.get("state_dict", blob.get("model", blob))
-    sd = {k[len("module."):] if k.startswith("module.") else k: v
-          for k, v in sd.items()}
-    load_reference_state_dict(model, sd)
-    print(f"[eval] loaded {path}", flush=True)
-    return model
-
-
 def result_root(cfg, args: argparse.Namespace) -> str:
     """<DIR_EVALUATION>/<dataset>/<exp>/Annotations (tools/eval.py:129-137)."""
     exp = f"{cfg.EXP_NAME}_{cfg.STAGE_NAME}_ckpt_{args.ckpt_step}"
@@ -182,7 +154,8 @@ def run(argv=None, cudnn_benchmark: bool = True):
     torch.backends.cudnn.allow_tf32 = False
     root = result_root(cfg, args)
     os.makedirs(root, exist_ok=True)
-    ev = Evaluator(cfg, load_model(cfg, args, device), rank=args.rank,
+    model = load_model(cfg, resolve_checkpoint(args, cfg), device)
+    ev = Evaluator(cfg, model, rank=args.rank,
                    world=args.world, result_root=root, device=device,
                    cudnn_benchmark=cudnn_benchmark)
     summary = ev.evaluate()

@@ -3,9 +3,8 @@
 The reference logs scalars/images to tensorboardX behind TRAIN_TBLOG
 (trainer.py:132-134, 655-684). Here: a dependency-free JSONL metrics stream
 (one object per log step) + optional TensorBoard if the package exists, and
-per-step prediction image dumps (reference DIR_IMG_LOG, trainer.py:622-653).
-The JAX module's ProfilerHook (jax.profiler traces) has no caller there and
-is not carried over.
+per-step prediction image dumps (reference DIR_IMG_LOG, trainer.py:622-653),
+and ProfilerHook, a torch.profiler trace around any stretch of a run.
 """
 
 from __future__ import annotations
@@ -68,3 +67,38 @@ def save_pred_image_log(log_dir: str, step: int, frame: np.ndarray,
     strip = (np.concatenate(panels, axis=1) * 255).astype(np.uint8)
     Image.fromarray(strip).save(os.path.join(log_dir, f"step_{step}.jpg"),
                                 quality=85)
+
+
+class ProfilerHook:
+    """torch.profiler trace capture (the counterpart of aot_tpu/utils/
+    logging.py's ProfilerHook, which records jax.profiler traces): host
+    activity, plus the card's kernels and copies when torch sees a card.
+    `start` creates `trace_dir` and starts recording; `stop` writes the
+    recording there as a Chrome trace (chrome://tracing, Perfetto) and
+    returns its path. `stop` without a running trace does nothing and
+    returns None."""
+
+    def __init__(self, trace_dir: str):
+        self.trace_dir = trace_dir
+        self._prof = None
+
+    def start(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(self.trace_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+
+    def stop(self):
+        if self._prof is None:
+            return None
+        prof, self._prof = self._prof, None
+        prof.stop()
+        path = os.path.join(self.trace_dir,
+                            f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        return path

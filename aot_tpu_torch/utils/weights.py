@@ -63,7 +63,8 @@ Keys of the 14 variants (configs/models.py; tests/test_torch_port_variants.py):
 
 from __future__ import annotations
 
-from typing import Mapping
+import os
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -80,3 +81,42 @@ def load_reference_state_dict(model: nn.Module,
                for k, v in sd.items()}
     model.load_state_dict(tensors, strict=True)
 
+
+def load_weights_file(model: nn.Module, path: str) -> None:
+    """Load the weights of a .pth into `model` strictly: a checkpoint of
+    the port's trainer (its raw stream {'model': ...} or its EMA stream
+    {'state_dict': ...}), or a reference-keyed state dict as it is or under
+    'state_dict'. 'module.' is removed wherever it stands in a key, as
+    aot_tpu/utils/torch_import.py:73 removes it (DistributedDataParallel
+    prefixes every key with it). Unlike aot_tpu's
+    load_torch_pretrained, which keeps the parameters a file lacks at their
+    init, any missing, unexpected or mis-shaped key raises."""
+    from aot_tpu_torch.utils import checkpoint as ckpt_lib
+
+    blob = ckpt_lib.load_checkpoint(path, "cpu")
+    sd = blob.get("state_dict", blob.get("model", blob))
+    load_reference_state_dict(
+        model, {k.replace("module.", ""): v for k, v in sd.items()})
+
+
+def load_model(cfg, path: Optional[str], device) -> nn.Module:
+    """The serving model of `cfg` on `device` with the weights of `path`:
+    'test' for seeded random weights, else a .pth that load_weights_file
+    loads strictly (the eval CLI's and the demo's loader). The model is
+    always built with frozen BN (aot_tpu/models/aot.py:343-345); a
+    checkpoint of a trainable-BN run has the same keys (its BN weight,
+    bias and running stats) and loads into it strictly."""
+    from aot_tpu_torch.models import build_vos_model
+
+    model = build_vos_model(cfg, device=device)
+    if path == "test":
+        print("[eval] ckpt-less smoke mode: random weights", flush=True)
+        return model
+    if path is None or not os.path.isfile(path):
+        raise FileNotFoundError(f"no checkpoint at {path!r}")
+    if not path.endswith(".pth"):
+        raise NotImplementedError(
+            f"{path}: aot_tpu_torch loads .pth state dicts")
+    load_weights_file(model, path)
+    print(f"[eval] loaded {path}", flush=True)
+    return model

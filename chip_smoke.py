@@ -22,7 +22,7 @@ fifth the flash backward's kernels one by one at phase 9's and 24's shapes
 flash) one by one at phase 19's shapes (`profile_fwd`).
 
 Phases (2, 3, 8, 9, 19, 23 and 24, the kernel checks, run first, then 4
-to 7, then 10 to 18, then 20 to 22, then 25 to 31); any failure raises and
+to 7, then 10 to 18, then 20 to 22, then 25 to 33); any failure raises and
 the exit code is non-zero:
   0. refuse to run without a card; print the card's name and power limit
      (nvidia-smi) and the torch/CUDA versions; TF32 off for matmuls and
@@ -32,8 +32,8 @@ the exit code is non-zero:
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the serving paths give it (max abs error <= 1e-4): the
      local-window kernel (csrc/local_window_attn_tc.cu) through the flat
-     route's wrapper at the 465x465 grids and Swin-B's 29x29 (464x464; both
-     heads) and through the wide route's at
+     route's wrapper at the 465x465 grids, Swin-B's 29x29 (464x464; both
+     heads) and the demo's 29x51 (DeAOT's head) and through the wide route's at
      the full-resolution grids (64x113 and 68x120 with rel_v, 43x76 at B=2,
      DeAOT's head at 64x113, a 5x3 grid narrower than the window), through
      both at a window of one slot (max_dis 0), a grid of one row at both
@@ -154,12 +154,14 @@ the exit code is non-zero:
      bf16 plain versions (max abs error <= 1e-2 of the largest entry, lse
      within 1e-2; the plain versions widen to fp32, the flash one rounds P
      to bf16), a second run bit-identical: the local-window kernel at the
-     AOT and DeAOT heads at 30x30 with B = 1 and 4 (flat route) and at
-     64x113 (wide route), the flash forward over AOTT-shaped LT rings
-     (Lq=900, Lk=7,200, h=8, d=32, live 900 to 7,200), DeAOTL's (Lq=900,
-     Lk=19,800, d=128, dv=1024) with B = 1 and 4 and at the training
-     shapes (AOTT B=16, h=8, L=900, d=dv=32; DeAOT's GPM self-attention
-     B=16, L=900, d=128, dv=1024, and its LT read at Lk=2,700), with NaN in
+     AOT and DeAOT heads at 30x30 with B = 1 and 4 and DeAOT's at the
+     demo's 29x51 (flat route), both at 64x113 (wide route), the flash
+     forward over AOTT-shaped LT rings (Lq=900, Lk=7,200, h=8, d=32, live
+     900 to 7,200), DeAOTL's (Lq=900, Lk=19,800, d=128, dv=1024) with B =
+     1 and 4, the demo's (Lq=1,479, Lk=5,916, live 4,437 and 5,916) and
+     at the training shapes (AOTT B=16, h=8, L=900, d=dv=32; DeAOT's GPM
+     self-attention B=16, L=900, d=128, dv=1024, and its LT read at
+     Lk=2,700), with NaN in
      every dead key (the same bits: dead keys are never read), and an
      element with no live key (out exactly 0, lse -1e30); each timed
      beside the bf16 plain version, bf16 F.scaled_dot_product_attention
@@ -254,7 +256,29 @@ the exit code is non-zero:
      global reads of every forward (the self-attention and the LT read,
      900 keys each); each mode's masks against 'auto's (>= 99.9%). The
      mode is set back to 'auto'.
- 32. one JSON line with the kernels (the bf16 instantiations as entries of
+ 32. the entry points on the card. A written Demo folder (DEMO_SEQS: 32
+     frames with 3 objects and 8 frames with 2, 854x480 JPEGs, the first
+     mask of each) served by `python -m aot_tpu_torch.tools.demo`'s main at
+     R50_DeAOTL (inference.sh's model) at --max_resolution 480 (449x801, a
+     29x51 = 1,479-token grid; the demo never grows its 4-frame LT ring)
+     three times: fp32 per frame, fp32 with --frame_chunk 4, and --amp
+     (phases 2 and 19 hold #1 and #1b at its 29x51 grid and #5b at its LT
+     reads, Lq 1,479 over a 5,916-key ring with 4,437 and 5,916 keys
+     live). Each run's launches asserted from the LT schedule (fp32: the
+     flat local kernel on every LSTT forward, no flash launch below 8,192
+     live keys; --amp: the bf16 local kernel, and the bf16 flash forward
+     on every LT read of >= 4,096 live keys), one PNG and one MJPG video
+     frame a frame, ms/frame and FPS by the demo's own clock; the chunked
+     PNGs equal the per-frame ones; the first DEMO_CPU_FRAMES frames
+     against the port's demo on the CPU (MASK_AGREE a frame). Then
+     `python -m aot_tpu_torch.tools.score --json` on the fp32 run against
+     every frame's label; ProfilerHook around 3 demo frames, whose Chrome
+     trace must name the fp32 local kernel, and the card's busy time a
+     frame read from it beside the demo's own clock;
+     `python -m aot_tpu_torch.tools.overfit_check` at AOTT, B=4, crop 257,
+     200 steps on an npz of seeded ellipse clips: the logged IoU must rise
+     (the tool's 0.25 verdict is printed, not gated).
+ 33. one JSON line with the kernels (the bf16 instantiations as entries of
      their own; launches summed over the main paths; each kernel's time,
      plain time, bound and library time at its main shape), the card line,
      and last the result line {"ok": true, "device": {...}}; every kernel
@@ -479,6 +503,8 @@ def check_local_numerics(lwa, device, rng):
         # Swin-B's 464x464 grid: 29 is no multiple of the 16-pixel row
         ("swinb_aot_st_29x29", 1, 29, 29, 8, 32, 32, True, 7, flat),
         ("swinb_deaot_st_29x29", 1, 29, 29, 1, 128, 1024, False, 7, flat),
+        # the demo's 449x801 input at --max_resolution 480 (phase 32)
+        ("deaot_demo_29x51", 1, 29, 51, 1, 128, 1024, False, 7, flat),
         ("aott_ragged_46x80", 1, 46, 80, 8, 32, 32, True, 7, both),
         ("aott_davis_1080p", 1, 64, 113, 8, 32, 32, True, 7, wide),
         ("aott_68x120", 1, 68, 120, 8, 32, 32, True, 7, wide),
@@ -1995,45 +2021,65 @@ def write_davis_full_res(root: str, seed: int, frames: int,
     over a noisy gradient, and every frame's palettised annotation (as
     DAVIS val has; the evaluator reads the first, J&F all). Returns the
     annotation directory."""
+    seq = "ellipses"
+    davis = os.path.join(root, "DAVIS")
+    ann_root = os.path.join(davis, "Annotations", "Full-Resolution")
+    os.makedirs(os.path.join(davis, "ImageSets", "2017"), exist_ok=True)
+    with open(os.path.join(davis, "ImageSets", "2017", "val.txt"), "w") as f:
+        f.write(seq + "\n")
+    write_ellipse_clip(
+        os.path.join(davis, "JPEGImages", "Full-Resolution", seq),
+        os.path.join(ann_root, seq), seed, frames, EVAL_SIZE, objects)
+    return ann_root
+
+
+def ellipse_clip(seed: int, frames: int, size, objects: int,
+                 speed: float = 6.0, radius=(0.05, 0.1)):
+    """A seeded clip of `frames` uint8 RGB frames of (H, W) `size` with
+    `objects` ellipses (radii the given fractions of H and W) moving over a
+    noisy gradient, at most `speed` pixels a frame along each axis, and
+    their label maps: ((T, H, W, 3) uint8, (T, H, W) uint8)."""
+    hgt, wid = size
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:hgt, 0:wid].astype(np.float32)
+    base = np.stack([yy / hgt, xx / wid, (yy + xx) / (hgt + wid)], -1) * 160
+    centre = rng.uniform(0.25, 0.75, (objects, 2)) * (hgt, wid)
+    radii = rng.uniform(*radius, (objects, 2)) * (hgt, wid)
+    velocity = rng.uniform(-speed, speed, (objects, 2))
+    colour = rng.uniform(40, 255, (objects, 3)).astype(np.float32)
+    rgb = np.empty((frames, hgt, wid, 3), np.uint8)
+    labels = np.zeros((frames, hgt, wid), np.uint8)
+    for t in range(frames):
+        img = base + rng.standard_normal((hgt, wid, 3), np.float32) * 6
+        for i in range(objects):
+            cy, cx = centre[i] + t * velocity[i]
+            inside = (((yy - cy) / radii[i, 0]) ** 2
+                      + ((xx - cx) / radii[i, 1]) ** 2) <= 1
+            img[inside] = colour[i]
+            labels[t][inside] = i + 1
+        rgb[t] = np.clip(img, 0, 255).astype(np.uint8)
+    return rgb, labels
+
+
+def write_ellipse_clip(img_dir: str, ann_dir: str, seed: int, frames: int,
+                       size, objects: int, speed: float = 6.0) -> None:
+    """ellipse_clip's frames as JPEGs into img_dir and its label maps as
+    palettised PNGs into ann_dir."""
     import cv2
     from PIL import Image
 
     from aot_tpu_torch.utils.image import vos_palette
 
-    hgt, wid = EVAL_SIZE
-    seq = "ellipses"
-    davis = os.path.join(root, "DAVIS")
-    img_dir = os.path.join(davis, "JPEGImages", "Full-Resolution", seq)
-    ann_root = os.path.join(davis, "Annotations", "Full-Resolution")
-    for d in (img_dir, os.path.join(ann_root, seq),
-              os.path.join(davis, "ImageSets", "2017")):
+    for d in (img_dir, ann_dir):
         os.makedirs(d, exist_ok=True)
-    with open(os.path.join(davis, "ImageSets", "2017", "val.txt"), "w") as f:
-        f.write(seq + "\n")
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:hgt, 0:wid].astype(np.float32)
-    base = np.stack([yy / hgt, xx / wid, (yy + xx) / (hgt + wid)], -1) * 160
-    centre = rng.uniform(0.25, 0.75, (objects, 2)) * (hgt, wid)
-    radius = rng.uniform(0.05, 0.1, (objects, 2)) * (hgt, wid)
-    speed = rng.uniform(-6.0, 6.0, (objects, 2))
-    colour = rng.uniform(40, 255, (objects, 3)).astype(np.float32)
     palette = vos_palette()
+    rgb, labels = ellipse_clip(seed, frames, size, objects, speed)
     for t in range(frames):
-        img = base + rng.standard_normal((hgt, wid, 3), np.float32) * 6
-        lab = np.zeros((hgt, wid), np.uint8)
-        for i in range(objects):
-            cy, cx = centre[i] + t * speed[i]
-            inside = (((yy - cy) / radius[i, 0]) ** 2
-                      + ((xx - cx) / radius[i, 1]) ** 2) <= 1
-            img[inside] = colour[i]
-            lab[inside] = i + 1
-        rgb = np.clip(img, 0, 255).astype(np.uint8)
-        cv2.imwrite(os.path.join(img_dir, f"{t:05d}.jpg"), rgb[..., ::-1],
+        cv2.imwrite(os.path.join(img_dir, f"{t:05d}.jpg"), rgb[t][..., ::-1],
                     [cv2.IMWRITE_JPEG_QUALITY, 95])
-        im = Image.fromarray(lab).convert("P")
+        im = Image.fromarray(labels[t]).convert("P")
         im.putpalette(palette)
-        im.save(os.path.join(ann_root, seq, f"{t:05d}.png"))
-    return ann_root
+        im.save(os.path.join(ann_dir, f"{t:05d}.png"))
 
 
 def full_res_clip(name: str, device, label: str):
@@ -2580,28 +2626,371 @@ def check_attn_knobs(kernels, device, card: str):
                                  "auto's")
 
 
+# --- phase 32: the entry points ---------------------------------------------
+
+
+DEMO_SIZE = (480, 854)      # the Demo clips' frames (H, W): 480p at 16:9
+DEMO_SEQS = (("ellipses3", 32, 3), ("ellipses2", 8, 2))  # name, frames, objects
+DEMO_MODEL = "r50_deaotl"   # inference.sh's default
+DEMO_CHUNK = 4              # --frame_chunk of the chunked run
+DEMO_CPU_FRAMES = 5         # the fp32 run's first frames, held against the CPU
+DEMO_PROFILED = 3           # frames stepped inside ProfilerHook
+OVERFIT_BATCH = 4           # the overfit check's defaults (tools/overfit_check.py)
+OVERFIT_CROP = 257
+OVERFIT_STEPS = 200
+OVERFIT_OBJECTS = 3
+
+
+def write_demo(root: str):
+    """A datasets/Demo folder under root (images/<seq>/*.jpg, masks/<seq>/
+    00000.png) of DEMO_SEQS, and beside it an Annotations folder with every
+    frame's label map. Returns (the Demo folder, the Annotations folder)."""
+    import shutil
+
+    data = os.path.join(root, "Demo")
+    ann = os.path.join(root, "Annotations")
+    for i, (seq, frames, objects) in enumerate(DEMO_SEQS):
+        write_ellipse_clip(os.path.join(data, "images", seq),
+                           os.path.join(ann, seq), SEED + 300 + i, frames,
+                           DEMO_SIZE, objects, speed=3.0)
+        os.makedirs(os.path.join(data, "masks", seq))
+        shutil.copy(os.path.join(ann, seq, "00000.png"),
+                    os.path.join(data, "masks", seq))
+    return data, ann
+
+
+def demo_prefix(data: str, dst: str, frames: int) -> str:
+    """A Demo folder at dst holding the first `frames` frames of DEMO_SEQS'
+    first sequence (and its first mask). Returns dst."""
+    import shutil
+
+    seq = DEMO_SEQS[0][0]
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(dst, sub, seq))
+    for t in range(frames):
+        shutil.copy(os.path.join(data, "images", seq, f"{t:05d}.jpg"),
+                    os.path.join(dst, "images", seq))
+    shutil.copy(os.path.join(data, "masks", seq, "00000.png"),
+                os.path.join(dst, "masks", seq))
+    return dst
+
+
+def demo_argv(data: str, out: str, device, *extra):
+    return ["--model", DEMO_MODEL, "--ckpt_path", "test", "--data_path",
+            data, "--output_path", out, "--max_resolution", "480",
+            "--device", str(device), *extra]
+
+
+def read_pngs(out: str):
+    """{seq/frame.png: mask} of a demo output folder."""
+    from PIL import Image
+
+    return {f"{seq}/{f}": np.array(Image.open(os.path.join(out, seq, f)))
+            for seq in sorted(os.listdir(out))
+            if os.path.isdir(os.path.join(out, seq))
+            for f in sorted(os.listdir(os.path.join(out, seq)))}
+
+
+def video_frames(path: str) -> int:
+    """Frames cv2 decodes from a video file."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = 0
+    try:
+        while cap.read()[0]:
+            n += 1
+    finally:
+        cap.release()
+    return n
+
+
+def demo_expected_launches(kernels, cfg, bf16: bool):
+    """Launches by kernel name of the demo over DEMO_SEQS at DEMO_SIZE: a
+    local read a block for every LSTT forward (each frame, the reference
+    frame's included) on the flat route, and the flash forward for every
+    LT read of enough live keys. The demo never grows its LT ring, so the
+    live keys stop at TEST_LONG_TERM_MEM_CAP frames. Returns (launches,
+    the grid's tokens, the live LT keys at each sequence's end)."""
+    from aot_tpu_torch.data.video_aug import restrict_size
+    from aot_tpu_torch.engine.infer import LTShadow
+    from aot_tpu_torch.ops.attention import DENSE_LOCAL_MAX_TOKENS, use_flash
+
+    hgt, wid = restrict_size(*DEMO_SIZE, 1.0, None, 480 * 800 / 480,
+                             cfg.MODEL_ALIGN_CORNERS)
+    hw = ((hgt - 1) // 16 + 1) * ((wid - 1) // 16 + 1)
+    if hw > DENSE_LOCAL_MAX_TOKENS:
+        raise AssertionError(f"phase 32: {hw} tokens take the wide route")
+    cap = cfg.TEST_LONG_TERM_MEM_CAP
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    frames = flash_reads = 0
+    live_end = []
+    for _, n, _ in DEMO_SEQS:
+        shadow = LTShadow(cfg.TEST_LONG_TERM_MEM_GAP)
+        shadow.add_ref(0)
+        for t in range(1, n):
+            live = min(shadow.count, cap) * hw
+            flash_reads += use_flash(live, live, cfg.get("TEST_TOP_K", -1),
+                                     cfg.get("TEST_MAX_MEM_LEN_RATIO", -1.0),
+                                     dtype)
+            shadow.update(t)
+        frames += n
+        live_end.append(min(shadow.count, cap) * hw)
+    return (expected_launches(kernels, frames, flash_reads,
+                              cfg.MODEL_LSTT_NUM, bf16=bf16), hw, live_end)
+
+
+def overfit_batch(path: str) -> None:
+    """An npz batch in the overfit check's layout (frames (T, B, H, W, 3)
+    uint8, labels (T, B, H, W) uint8, obj_nums (B,) int32): OVERFIT_BATCH
+    seeded clips of TRAIN_T frames at the check's crop, OVERFIT_OBJECTS
+    ellipses each with radii of 10-20% of the crop."""
+    clips = [ellipse_clip(SEED + 200 + i, TRAIN_T, (OVERFIT_CROP,) * 2,
+                          OVERFIT_OBJECTS, speed=4.0, radius=(0.1, 0.2))
+             for i in range(OVERFIT_BATCH)]
+    np.savez(path, frames=np.stack([c[0] for c in clips], axis=1),
+             labels=np.stack([c[1] for c in clips], axis=1),
+             obj_nums=np.full((OVERFIT_BATCH,), OVERFIT_OBJECTS, np.int32))
+
+
+def run_demo_modes(kernels, device, card: str, root: str, data: str):
+    """Phase 32's demo runs on the card: fp32 per frame, with --frame_chunk,
+    and --amp, each with its launches asserted, one PNG and one video frame
+    a frame, the chunked PNGs equal to the per-frame ones. Returns (the
+    launches by kernel name of the three runs, {run: (output folder, PNGs,
+    ms a frame by the demo's own clock)})."""
+    from aot_tpu_torch.configs import build_config
+    from aot_tpu_torch.tools import demo
+
+    total = {name: 0 for name in kernels}
+    outs = {}
+    for tag, extra in (("fp32", ()),
+                       ("fp32_chunk", ("--frame_chunk", str(DEMO_CHUNK))),
+                       ("amp", ("--amp",))):
+        cfg = build_config(stage="pre_ytb_dav", model=DEMO_MODEL,
+                           TEST_DTYPE="bfloat16" if tag == "amp"
+                           else "float32")
+        want, hw, live_end = demo_expected_launches(kernels, cfg,
+                                                    tag == "amp")
+        out = os.path.join(root, "out_" + tag)
+        argv = demo_argv(data, out, device, *extra)
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        stats = demo.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        for k in kernels:
+            total[k] += launches[k]
+        frames = sum(s["frames"] for s in stats)
+        secs = sum(s["seconds"] for s in stats)
+        per_seq = ", ".join(f"{s['seq']} {s['frames']} frames "
+                            f"{s['seconds'] * 1e3 / s['frames']:.3f} ms/frame"
+                            for s in stats)
+        print(f"phase 32: python -m aot_tpu_torch.tools.demo "
+              f"{' '.join(argv)}: {hw} tokens a frame, live LT keys at the "
+              f"sequences' ends {live_end}; {frames} frames stepped in "
+              f"{secs:.3f} s: {secs * 1e3 / frames:.3f} ms/frame, "
+              f"{frames / secs:.2f} FPS (the demo's own clock: stepping, "
+              f"upscale and read-back, overlay; {per_seq}); {wall:.1f} s "
+              f"with model set-up, PNG and video writes; launches "
+              f"{ {k: n for k, n in launches.items() if n} } (expected "
+              f"{ {k: n for k, n in want.items() if n} }) ({card})",
+              flush=True)
+        if launches != want:
+            raise AssertionError(f"phase 32 {tag}: launches {launches} != "
+                                 f"{want}")
+        pngs = read_pngs(out)
+        for seq, n, _ in DEMO_SEQS:
+            got = sum(name.startswith(seq + "/") for name in pngs)
+            avi = os.path.join(out, seq + ".avi")
+            avi = video_frames(avi) if os.path.exists(avi) else 0
+            if got != n or avi != n:
+                raise AssertionError(f"phase 32 {tag}: {seq} has {got} PNGs "
+                                     f"and {avi} video frames, want {n}")
+        outs[tag] = (out, pngs, secs * 1e3 / frames)
+    base, chunked = outs["fp32"][1], outs["fp32_chunk"][1]
+    if sorted(chunked) != sorted(base) or any(
+            not np.array_equal(chunked[k], v) for k, v in base.items()):
+        raise AssertionError("phase 32: the chunked PNGs differ from the "
+                             "per-frame ones")
+    amp = min(float((outs["amp"][1][k] == v).mean()) for k, v in base.items())
+    print(f"phase 32: the --frame_chunk {DEMO_CHUNK} PNGs equal the "
+          f"per-frame ones ({len(base)} masks); --amp against "
+          f"fp32: worst frame {amp:.6f} of pixels equal (not gated: random "
+          "weights)", flush=True)
+    return total, outs
+
+
+def compare_demo_with_cpu(root: str, data: str, card_pngs) -> None:
+    """Phase 32: the demo's first DEMO_CPU_FRAMES frames on the CPU against
+    the card's fp32 run, MASK_AGREE a frame."""
+    from aot_tpu_torch.tools import demo
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "out_cpu")
+    demo.main(demo_argv(demo_prefix(data, os.path.join(root, "cpu"),
+                                    DEMO_CPU_FRAMES),
+                        out, "cpu", "--no_video"))
+    agree = {k: float((v == card_pngs[k]).mean())
+             for k, v in read_pngs(out).items()}
+    print(f"phase 32: the fp32 run's first {DEMO_CPU_FRAMES} frames against "
+          f"the port's CPU run ({time.perf_counter() - t0:.1f} s): "
+          f"{agree}", flush=True)
+    if len(agree) != DEMO_CPU_FRAMES or min(agree.values()) < MASK_AGREE:
+        raise AssertionError(f"phase 32: card vs CPU masks {agree}")
+
+
+def device_busy_ms(events) -> float:
+    """The card's busy time in a Chrome trace: the union of its kernel,
+    copy and memset spans, in ms."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
+def profile_demo(device, card: str, root: str, data: str, kernel: str,
+                 host_ms: float) -> None:
+    """Phase 32: DEMO_PROFILED demo frames (after the reference frame)
+    inside ProfilerHook; the Chrome trace it writes must name `kernel`.
+    Prints the card's busy time a frame beside the demo's own clock (in
+    this run and `host_ms`, the unprofiled fp32 run's): the busy time
+    counts the random model's build and the reference frame too, so it
+    bounds a frame's device time from above."""
+    from aot_tpu_torch.tools import demo
+    from aot_tpu_torch.utils.logging import ProfilerHook
+
+    hook = ProfilerHook(os.path.join(root, "trace"))
+    prof_data = demo_prefix(data, os.path.join(root, "profiled"),
+                            DEMO_PROFILED + 1)
+    hook.start()
+    stats = demo.main(demo_argv(prof_data, os.path.join(root, "out_profiled"),
+                                device, "--no_video"))
+    torch.cuda.synchronize()
+    trace = hook.stop()
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    hits = [e for e in events if e.get("cat") == "kernel"
+            and kernel in e.get("name", "")]
+    kernel_ms = sum(e.get("dur", 0) for e in events
+                    if e.get("cat") == "kernel") / 1e3
+    busy = device_busy_ms(events)
+    own = stats[0]["seconds"] * 1e3 / stats[0]["frames"]
+    print(f"phase 32: ProfilerHook around {DEMO_PROFILED} demo frames (and "
+          f"the reference frame): {os.path.getsize(trace)} bytes of Chrome "
+          f"trace, {len(events)} events, {kernel} {len(hits)} times, "
+          f"{sum(e.get('dur', 0) for e in hits) / 1e3:.3f} ms; the card busy "
+          f"{busy:.3f} ms ({kernel_ms:.3f} ms of kernels), "
+          f"{busy / (DEMO_PROFILED + 1):.3f} ms a frame with the model's "
+          f"build and the reference frame counted in, against the demo's own "
+          f"clock {own:.3f} ms/frame here (profiled) and {host_ms:.3f} "
+          f"ms/frame in the fp32 run ({card})", flush=True)
+    if not hits:
+        raise AssertionError(f"phase 32: the trace names no {kernel}")
+
+
+def run_overfit(kernels, device, card: str, root: str):
+    """Phase 32: the overfit check on an npz of seeded ellipse clips; the
+    logged IoU must rise. Returns its launches by kernel name."""
+    from aot_tpu_torch.tools import overfit_check
+
+    npz = os.path.join(root, "overfit_batch.npz")
+    overfit_batch(npz)
+    jsonl = os.path.join(root, "overfit.jsonl")
+    args = ["--model", "aott", "--batch", str(OVERFIT_BATCH), "--crop",
+            str(OVERFIT_CROP), "--steps", str(OVERFIT_STEPS)]
+    cwd = os.getcwd()
+    os.chdir(root)          # the check's config writes its run folders here
+    try:
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        iou = overfit_check.main(args + [
+            "--batch_npz", npz, "--jsonl", jsonl, "--device", str(device)])
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+    finally:
+        os.chdir(cwd)
+    with open(jsonl) as f:
+        lines = [json.loads(x) for x in f]
+    print(f"phase 32: python -m aot_tpu_torch.tools.overfit_check "
+          f"{' '.join(args)} on seeded ellipse clips: IoU "
+          f"{[r['iou'] for r in lines]} at steps "
+          f"{[r['step'] for r in lines]}, {lines[-1]['sec_per_it'] * 1e3:.1f}"
+          f" ms/step, {wall:.1f} s; verdict at tools/overfit_check.py's 0.25 "
+          f"bar (set on a real Static batch, not gated here): "
+          f"{'PASS' if iou > 0.25 else 'FAIL'}; launches "
+          f"{ {k: n for k, n in launches.items() if n} } ({card})",
+          flush=True)
+    if not lines[-1]["iou"] > lines[0]["iou"]:
+        raise AssertionError(f"phase 32: overfit IoU did not rise: {lines}")
+    return launches
+
+
+def run_entry_points(kernels, device, card: str):
+    """Phase 32. Returns the launches by kernel name of the demo's three
+    runs and the overfit check."""
+    import shutil
+
+    from aot_tpu_torch.tools import score
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_demo")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data, ann = write_demo(root)
+    print(f"phase 32: Demo folder of {len(DEMO_SEQS)} sequences "
+          f"({', '.join(f'{n} frames, {o} objects' for _, n, o in DEMO_SEQS)}"
+          f") at {DEMO_SIZE[0]}x{DEMO_SIZE[1]} written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    total, outs = run_demo_modes(kernels, device, card, root, data)
+    compare_demo_with_cpu(root, data, outs["fp32"][1])
+    got = score.main([outs["fp32"][0], ann, "--json"])
+    print(f"phase 32: python -m aot_tpu_torch.tools.score on the fp32 run: "
+          f"{got} (random weights, not gated)", flush=True)
+    if got["sequences"] != len(DEMO_SEQS) or not all(
+            np.isfinite(got[k]) for k in ("J", "F", "J&F")):
+        raise AssertionError(f"phase 32: score {got}")
+    profile_demo(device, card, root, data, "local_attn_kernel",
+                 outs["fp32"][2])
+    for k, n in run_overfit(kernels, device, card, root).items():
+        total[k] += n
+    return total
+
+
 # --- phases 19-22: bf16, batched and chunked serving ----------------------
 
 
 # phase 19's and --profile-fwd's shapes of the bf16 forward kernels: the
 # local-window kernel at the AOT head (h=8, d=dv=32, rel_v) and DeAOT's
 # (h=1, d=128, dv=1024) at 30x30 with B = 1 and 4 (flat route; B = 4 is
-# `--video_batch 4` serving) and at 64x113 (wide route)
+# `--video_batch 4` serving), at the demo's 29x51 (phase 32's --amp run)
+# and at 64x113 (wide route)
 BF16_LOCAL_SHAPES = (("AOT head 30x30", 1, 30, 30, 8, 32, 32, True),
                      ("AOT head 30x30", 4, 30, 30, 8, 32, 32, True),
                      ("DeAOT head 30x30", 1, 30, 30, 1, 128, 1024, False),
                      ("DeAOT head 30x30", 4, 30, 30, 1, 128, 1024, False),
+                     ("DeAOT head 29x51", 1, 29, 51, 1, 128, 1024, False),
                      ("AOT head 64x113", 1, 64, 113, 8, 32, 32, True),
                      ("DeAOT head 64x113", 1, 64, 113, 1, 128, 1024, False))
 # ... and the flash forward over AOTT-shaped LT rings and DeAOTL's (live
-# key lists: a (B,) valid_len), then at the training shapes of
-# BF16_BWD_SHAPES (every key live)
+# key lists: a (B,) valid_len), over the demo's 4-frame ring of 1,479-token
+# frames with 3 and 4 frames live (phase 32's --amp run reads it from 4,096
+# live keys on), then at the training shapes of BF16_BWD_SHAPES (every key
+# live)
 BF16_FLASH_SHAPES = (
     ("AOTT ring live 900", 1, 900, 7200, 8, 32, 32, [900]),
     ("AOTT ring live 7200", 1, 900, 7200, 8, 32, 32, [7200]),
     ("AOTT ring", 4, 900, 7200, 8, 32, 32, [900, 2700, 5400, 7200]),
     ("DeAOTL LT", 1, 900, 19800, 1, 128, 1024, [19800]),
     ("DeAOTL LT", 4, 900, 19800, 1, 128, 1024, [19800, 14400, 9000, 4500]),
+    ("DeAOTL demo LT", 1, 1479, 5916, 1, 128, 1024, [4437]),
+    ("DeAOTL demo LT", 1, 1479, 5916, 1, 128, 1024, [5916]),
 ) + tuple((label, b, lq, lk, h, d, dv, None)
           for label, b, lq, lk, h, d, dv in BF16_BWD_SHAPES)
 
@@ -3372,6 +3761,10 @@ def main() -> int:
           flush=True)
     check_attn_knobs(kernels, device, card)
     print(f"phase 31 done at {time.perf_counter() - start:.1f} s",
+          flush=True)
+    for k, n in run_entry_points(kernels, device, card).items():
+        total[k] += n
+    print(f"phase 32 done at {time.perf_counter() - start:.1f} s",
           flush=True)
     unused = [name for name, n in total.items() if n == 0]
     if unused:

@@ -9,12 +9,15 @@ The CUDA kernels run only on the card; chip_smoke.py holds them against
 these plain versions there. Tolerance 1e-5: fp32, only the summation order
 differs."""
 
+import ctypes
+import ctypes.util
 import math
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from aot_tpu.ops.attention import global_attention as jax_global_attention
@@ -34,6 +37,23 @@ def _jax_dense_oracle():
     set_attn_impl("xla")
     yield
     set_attn_impl("auto")
+
+
+_LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+
+
+def _process_state() -> str:
+    """The process-wide settings that could move these comparisons, for a
+    failure's message: this thread's rounding mode (fegetround; 0 is to
+    nearest) and its MXCSR (byte 28 of x86-64 glibc's fenv_t; FTZ 0x8000,
+    DAZ 0x40), JAX's default matmul precision and torch's intra-op
+    threads."""
+    env = (ctypes.c_uint32 * 8)()
+    _LIBM.fegetenv(env)
+    return (f"rounding mode {_LIBM.fegetround()}, mxcsr {env[7]:#06x}, "
+            f"jax_default_matmul_precision "
+            f"{jax.config.jax_default_matmul_precision}, torch threads "
+            f"{torch.get_num_threads()}")
 
 
 def _mk(b, lq, lk, h, d, dv, seed=0):
@@ -90,10 +110,17 @@ def test_plain_matches_jax_kernel_and_dense_oracle(case):
                        h, d, block_q=BLOCK, block_k=BLOCK, interpret=True)
     dense = jax_global_attention(jnp.asarray(q), jnp.asarray(k),
                                  jnp.asarray(v), h, d, valid_len=vl_j)
-    np.testing.assert_allclose(out.numpy(), np.asarray(kernel), **TOL)
-    np.testing.assert_allclose(out.numpy(), np.asarray(dense), **TOL)
-    np.testing.assert_allclose(lse.numpy(),
-                               _jax_kernel_lse(q, k, v, valid, h, d), **TOL)
+    try:
+        np.testing.assert_allclose(out.numpy(), np.asarray(kernel),
+                                   err_msg="out vs the JAX kernel", **TOL)
+        np.testing.assert_allclose(out.numpy(), np.asarray(dense),
+                                   err_msg="out vs the dense oracle", **TOL)
+        np.testing.assert_allclose(
+            lse.numpy(), _jax_kernel_lse(q, k, v, valid, h, d),
+            err_msg="lse vs the JAX kernel", **TOL)
+    except AssertionError as e:
+        raise AssertionError(f"{e}\nprocess state: {_process_state()}"
+                             ) from None
 
 
 def test_empty_row_is_zero_as_in_the_kernel():

@@ -73,3 +73,44 @@ def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
                              timeout=300, env=_clean_env())
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+_RUN_HELP = """
+import runpy, sys
+sys.argv = [{name!r}, "--help"]
+try:
+    runpy.run_module({name!r}, run_name="__main__")
+except SystemExit as exit_:
+    assert exit_.code == 0, exit_.code
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "aot_tpu")))
+"""
+
+
+@pytest.mark.parametrize("name", ["aot_tpu_torch.tools.demo",
+                                  "aot_tpu_torch.tools.score",
+                                  "aot_tpu_torch.tools.overfit_check"])
+def test_tool_entry_points_run_without_jax(name):
+    """`python -m <tool> --help` parses its arguments, exits 0 and leaves
+    jax, flax and aot_tpu unimported."""
+    out = subprocess.run([sys.executable, "-c", _RUN_HELP.format(name=name)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=_clean_env())
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_port_scripts_call_the_port():
+    """aot_tpu_torch/scripts/*.sh run the port's modules, each of which
+    exists, and nothing under tools/."""
+    scripts = sorted((PKG / "scripts").glob("*.sh"))
+    assert [s.name for s in scripts] == ["inference.sh", "train_eval.sh"]
+    for script in scripts:
+        text = script.read_text()
+        mods = re.findall(r"python -m (\S+)", text)
+        assert mods and "tools/" not in text, script.name
+        for mod in mods:
+            path = ROOT / Path(*mod.split("."))
+            assert (path.with_suffix(".py").is_file()
+                    or (path / "__main__.py").is_file()), mod

@@ -19,7 +19,8 @@ against aot_tpu on the CPU.
   tolerances but where SENS_EPS says why; the optimizer's groups leaf by
   leaf. The frames are normalised floats (see `normalised`).
 - A trainable-BN EMA checkpoint loads strictly into the frozen serving
-  model through the eval CLI's load_model and keeps the running stats.
+  model through utils/weights.load_model (the eval CLI's loader) and
+  keeps the running stats.
 - MetricsLogger, AverageMeter and save_pred_image_log against the JAX
   package's on the same inputs: the JSONL fields and values, the meter's
   averages, the decoded JPEG pixels (equal).
@@ -407,7 +408,7 @@ def test_trainable_bn_param_groups_match_jax(bn_step, over):
 
 def test_trainable_bn_ema_checkpoint_loads_into_the_frozen_model(bn_step,
                                                                   tmp_path):
-    from aot_tpu_torch.eval.__main__ import build_parser, load_model
+    from aot_tpu_torch.utils.weights import load_model
     from aot_tpu_torch.utils import checkpoint as ckpt
 
     cfg, _, want, _, _ = bn_step
@@ -416,8 +417,7 @@ def test_trainable_bn_ema_checkpoint_loads_into_the_frozen_model(bn_step,
     ema = pstep.create_train_state(cfg, model).ema
     path = ckpt.save_checkpoint(str(tmp_path), 1,
                                 {"state_dict": ema.state_dict(model)})
-    args = build_parser().parse_args(["--ckpt_path", path])
-    serving = load_model(cfg, args, torch.device("cpu"))
+    serving = load_model(cfg, path, torch.device("cpu"))
     assert not serving.training
     sd = serving.state_dict()
     assert set(sd) == set(want["state"])
