@@ -14,6 +14,10 @@ package, both exact:
     `lax.cond` on the TPU, and the global attention reads only the live
     prefix of the LT ring (masked keys carry exactly zero weight, so
     dropping them changes nothing).
+
+Spans (utils/tracing.py): `encode`, `update_memory` with `lt_write` inside
+it when the LT ring is written, and `grow_lt`; counters `engine.lt_write`,
+`engine.lt_grow` and `engine.lt_grow_bytes`.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import torch.nn.functional as F
 from aot_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
 from aot_tpu_torch.engine import state as S
 from aot_tpu_torch.ops.image import interpolate_bilinear
+from aot_tpu_torch.utils import tracing
+from aot_tpu_torch.utils.tracing import span
 
 NEG_LOGIT = -1e10
 
@@ -64,14 +70,16 @@ class VOSEngine:
     def encode_image(self, img: torch.Tensor):
         """img: (B, H, W, 3), normalised float or raw uint8 (normalised on
         the device). Returns the encoder maps, NCHW."""
-        if img.dtype == torch.uint8:
-            dev = img.device
-            mean = self._const(("mean", dev), lambda: torch.tensor(
-                IMAGENET_MEAN, dtype=torch.float32, device=dev))
-            std = self._const(("std", dev), lambda: torch.tensor(
-                IMAGENET_STD, dtype=torch.float32, device=dev))
-            img = (img.float() / 255.0 - mean) / std
-        return self.model.encode_image(img.permute(0, 3, 1, 2).contiguous())
+        with span("encode"):
+            if img.dtype == torch.uint8:
+                dev = img.device
+                mean = self._const(("mean", dev), lambda: torch.tensor(
+                    IMAGENET_MEAN, dtype=torch.float32, device=dev))
+                std = self._const(("std", dev), lambda: torch.tensor(
+                    IMAGENET_STD, dtype=torch.float32, device=dev))
+                img = (img.float() / 255.0 - mean) / std
+            return self.model.encode_image(
+                img.permute(0, 3, 1, 2).contiguous())
 
     # --- state construction ---------------------------------------------
     def _st_rings(self, mems):
@@ -124,9 +132,14 @@ class VOSEngine:
         pad = (new_cap - self.lt_cap_of(state, hw)) * hw
         if pad <= 0:
             return state
-        return dataclasses.replace(state, lt=[
-            {k: F.pad(v, (0, 0, 0, pad)) for k, v in layer.items()}
-            for layer in state.lt])
+        with span("grow_lt"):
+            lt = [{k: F.pad(v, (0, 0, 0, pad)) for k, v in layer.items()}
+                  for layer in state.lt]
+        tracing.count("engine.lt_grow")
+        tracing.count("engine.lt_grow_bytes", sum(
+            v.numel() * v.element_size() for layer in lt
+            for v in layer.values()))
+        return dataclasses.replace(state, lt=lt)
 
     def _lt_views(self, state: S.EngineState, hw: int):
         """The live prefix of each LT ring and its valid length: an int when
@@ -240,24 +253,27 @@ class VOSEngine:
     def _write_lt(self, state: S.EngineState, fused, hw: int):
         """Each group's entry written into its LT slot; returns the LT
         rings (the same buffers when the engine writes in place)."""
-        cap = self.lt_cap_of(state, hw)
-        slots = [S.lt_write_slot(c, cap, self.lt_policy)
-                 for c in state.lt_count]
-        rings = []
-        for layer_lt, layer_f in zip(state.lt, fused):
-            layer = {}
-            for key, buf in layer_lt.items():
-                val = layer_f[key]
-                if len(set(slots)) == 1:      # every group: the same slot
-                    s = slots[0]
-                    buf = self._put(buf, (slice(None), slice(s * hw, (s + 1) * hw)),
-                                    val)
-                else:
-                    for b, s in enumerate(slots):
-                        buf = self._put(buf, (b, slice(s * hw, (s + 1) * hw)),
-                                        val[b])
-                layer[key] = buf
-            rings.append(layer)
+        with span("lt_write"):
+            cap = self.lt_cap_of(state, hw)
+            slots = [S.lt_write_slot(c, cap, self.lt_policy)
+                     for c in state.lt_count]
+            rings = []
+            for layer_lt, layer_f in zip(state.lt, fused):
+                layer = {}
+                for key, buf in layer_lt.items():
+                    val = layer_f[key]
+                    if len(set(slots)) == 1:  # every group: the same slot
+                        s = slots[0]
+                        buf = self._put(
+                            buf, (slice(None), slice(s * hw, (s + 1) * hw)),
+                            val)
+                    else:
+                        for b, s in enumerate(slots):
+                            buf = self._put(
+                                buf, (b, slice(s * hw, (s + 1) * hw)), val[b])
+                    layer[key] = buf
+                rings.append(layer)
+        tracing.count("engine.lt_write")
         return rings
 
     def update_memory(
@@ -273,29 +289,31 @@ class VOSEngine:
         int or `prob` (B, H, W, M+1), into the ST ring and, every lt_gap
         frames, the LT ring (aot_engine.py:307-338); in place when
         serving."""
-        if id_emb is None:
-            id_emb = (self.model.get_id_emb(prob.permute(0, 3, 1, 2))
-                      if prob is not None
-                      else self.model.get_id_emb_label(mask))
-        hw = state.embs[0].shape[1]
-        fused = self._fuse_curr(state, id_emb)
+        with span("update_memory"):
+            if id_emb is None:
+                id_emb = (self.model.get_id_emb(prob.permute(0, 3, 1, 2))
+                          if prob is not None
+                          else self.model.get_id_emb_label(mask))
+            hw = state.embs[0].shape[1]
+            fused = self._fuse_curr(state, id_emb)
 
-        ptr = (state.st_ptr + 1) % self.st_skip
-        st = [{key: self._put(buf, ptr, layer_f[key])
-               for key, buf in layer_st.items()}
-              for layer_st, layer_f in zip(state.st, fused)]
+            ptr = (state.st_ptr + 1) % self.st_skip
+            st = [{key: self._put(buf, ptr, layer_f[key])
+                   for key, buf in layer_st.items()}
+                  for layer_st, layer_f in zip(state.st, fused)]
 
-        # the gap clock advances whenever the gap is reached, even when the
-        # write itself is skipped (aot_engine.py:334-338)
-        gap_hit = state.frame_step - state.last_mem_step >= self.lt_gap
-        do_lt = gap_hit and not skip_long_term_update
-        if self.lt_policy == "stop":
-            do_lt = do_lt and min(state.lt_count) < self.lt_cap_of(state, hw)
-        lt = self._write_lt(state, fused, hw) if do_lt else state.lt
-        return dataclasses.replace(
-            state, lt=lt, st=st, st_ptr=ptr,
-            st_count=min(state.st_count + 1, self.st_skip),
-            lt_count=([c + 1 for c in state.lt_count] if do_lt
-                      else state.lt_count),
-            last_mem_step=(state.frame_step if gap_hit
-                           else state.last_mem_step))
+            # the gap clock advances whenever the gap is reached, even when
+            # the write itself is skipped (aot_engine.py:334-338)
+            gap_hit = state.frame_step - state.last_mem_step >= self.lt_gap
+            do_lt = gap_hit and not skip_long_term_update
+            if self.lt_policy == "stop":
+                do_lt = do_lt and (min(state.lt_count)
+                                   < self.lt_cap_of(state, hw))
+            lt = self._write_lt(state, fused, hw) if do_lt else state.lt
+            return dataclasses.replace(
+                state, lt=lt, st=st, st_ptr=ptr,
+                st_count=min(state.st_count + 1, self.st_skip),
+                lt_count=([c + 1 for c in state.lt_count] if do_lt
+                          else state.lt_count),
+                last_mem_step=(state.frame_step if gap_hit
+                               else state.last_mem_step))

@@ -4,6 +4,11 @@ networks/engines/aot_engine.py:485-635 AOTInferEngine).
 
 The group axis is the engine's batch axis: the image is encoded once and
 its maps broadcast over groups. Group bookkeeping is host-side.
+
+Spans (utils/tracing.py): `infer.step` and `infer.add_reference_frame`,
+each the root of its frame, and under `infer.step` `decode` (the logits and
+their aggregation) and `upsample_argmax`; the engine and the model add the
+stages below them.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from aot_tpu_torch.engine.engine import VOSEngine
 from aot_tpu_torch.ops.attention import set_attn_impl, set_attn_thresholds
 from aot_tpu_torch.ops.image import (interpolate_bilinear, nearest_labels,
                                      upsample_argmax)
+from aot_tpu_torch.utils.tracing import span
 
 
 def groups_for(obj_num: int, max_obj_num: int) -> int:
@@ -190,14 +196,15 @@ class VOSInferEngine:
                             frame_step: int = 0) -> S.EngineState:
         """mask ids 1..obj_num; a state given extends it (mid-video new
         objects)."""
-        g = self.num_groups(obj_num)
-        sep = separate_mask(mask, g, self.max_obj_num)
-        xs = self._broadcast_embs(self.engine.encode_image(img), g)
-        if state is not None and state.batch < g:
-            state = _expand_groups(state, g)
-        return self.engine.add_reference_frame(
-            None, sep, separated_obj_nums(obj_num, g, self.max_obj_num),
-            state=state, img_embs=xs, frame_step=frame_step)
+        with span("infer.add_reference_frame"):
+            g = self.num_groups(obj_num)
+            sep = separate_mask(mask, g, self.max_obj_num)
+            xs = self._broadcast_embs(self.engine.encode_image(img), g)
+            if state is not None and state.batch < g:
+                state = _expand_groups(state, g)
+            return self.engine.add_reference_frame(
+                None, sep, separated_obj_nums(obj_num, g, self.max_obj_num),
+                state=state, img_embs=xs, frame_step=frame_step)
 
     @torch.inference_mode()
     def propagate(self, state: S.EngineState,
@@ -210,13 +217,14 @@ class VOSInferEngine:
                       output_size: Optional[Tuple[int, int]] = None
                       ) -> torch.Tensor:
         """Aggregated (1, h, w, 1 + G*M) logits (aot_engine.py:618-623)."""
-        logits = self.engine.decode_logits(state)
-        agg = (soft_aggregate_logits if self.aggregation == "soft"
-               else min_aggregate_logits)(logits, self.max_obj_num)
-        if output_size is not None:
-            agg = interpolate_bilinear(agg, output_size,
-                                       align_corners=self.engine.align_corners)
-        return agg
+        with span("decode"):
+            logits = self.engine.decode_logits(state)
+            agg = (soft_aggregate_logits if self.aggregation == "soft"
+                   else min_aggregate_logits)(logits, self.max_obj_num)
+            if output_size is not None:
+                agg = interpolate_bilinear(
+                    agg, output_size, align_corners=self.engine.align_corners)
+            return agg
 
     @torch.inference_mode()
     def update_memory(self, state: S.EngineState,
@@ -232,12 +240,14 @@ class VOSInferEngine:
         update_memory, with the mask fed back on the device. Returns
         (state, pred (1, H, W) int64 at output_size, grid-resolution
         aggregated logits (1, h4, w4, 1 + G*M))."""
-        state = self.propagate(state, img)
-        logits = self.decode_logits(state)
-        pred = upsample_argmax(logits, output_size,
-                               align_corners=self.engine.align_corners)
-        state = self.update_memory(state, pred)
-        return state, pred, logits
+        with span("infer.step"):
+            state = self.propagate(state, img)
+            logits = self.decode_logits(state)
+            with span("upsample_argmax"):
+                pred = upsample_argmax(logits, output_size,
+                                       align_corners=self.engine.align_corners)
+            state = self.update_memory(state, pred)
+            return state, pred, logits
 
     # --- batched multi-video serving ------------------------------------
     # N independent videos advanced by one step: the engine's batch axis

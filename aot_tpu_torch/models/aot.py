@@ -38,6 +38,7 @@ from aot_tpu_torch.models.layers import (Conv2d, LayerNorm, dropout,
 from aot_tpu_torch.models.lstt import DualBranchGPM, LongShortTermTransformer
 from aot_tpu_torch.ops.position import sine_position_embedding_seq
 from aot_tpu_torch.utils.device import resolve_device
+from aot_tpu_torch.utils.tracing import span
 
 
 class AOT(nn.Module):
@@ -124,11 +125,12 @@ class AOT(nn.Module):
                      max_mem_len_ratio: float = -1.0,
                      generator: Optional[torch.Generator] = None):
         """emb16: (B, C, H16, W16) projected feature -> token sequence ->
-        LSTT stack (aot.py:94-108)."""
-        return self.LSTT(
-            seq_from_2d(emb16), lt_mems, st_mems, curr_id_emb, pos_emb,
-            size_2d, lt_valid_len=lt_valid_len, top_k=top_k,
-            max_mem_len_ratio=max_mem_len_ratio, generator=generator)
+        LSTT stack (aot.py:94-108), under the span `lstt`."""
+        with span("lstt"):
+            return self.LSTT(
+                seq_from_2d(emb16), lt_mems, st_mems, curr_id_emb, pos_emb,
+                size_2d, lt_valid_len=lt_valid_len, top_k=top_k,
+                max_mem_len_ratio=max_mem_len_ratio, generator=generator)
 
     def decode_id_logits(self, lstt_intermediates, shortcuts) -> torch.Tensor:
         """(aot.py:86-92). Returns (B, M+1, H4, W4) fp32 logits, whatever

@@ -8,6 +8,10 @@ their unfused current (k, v); fusing a mask's identity into memory is the
 separate `fuse_key_value_id`, so the engine can call it with predicted
 masks. DeAOT's memory adds a third entry, `id_v`, the identity branch's
 values; its blocks fuse the mask's identity into `id_v` alone.
+
+Spans (utils/tracing.py): `lstt.block<i>` around block i, and inside it
+`lt_read` (the long-term attention, with DeAOT's concatenation of its
+values) and `st_read` (the short-term one, likewise).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from torch import nn
 
 from aot_tpu_torch.models import layers as L
 from aot_tpu_torch.ops import attention as att_ops
+from aot_tpu_torch.utils.tracing import span
 
 Mem = Dict[str, torch.Tensor]
 
@@ -88,10 +93,13 @@ class LSTTBlockV1(nn.Module):
             global_k, global_v = lt_mem["k"], lt_mem["v"]
             local_k, local_v = st_mem["k"], st_mem["v"]
 
-        tgt2 = self.long_term_attn(
-            curr_q, global_k, global_v, valid_len=lt_valid_len, top_k=top_k,
-            max_mem_len_ratio=max_mem_len_ratio, generator=g)
-        tgt3 = self.short_term_attn(curr_q, local_k, local_v, size_2d)
+        with span("lt_read"):
+            tgt2 = self.long_term_attn(
+                curr_q, global_k, global_v, valid_len=lt_valid_len,
+                top_k=top_k, max_mem_len_ratio=max_mem_len_ratio,
+                generator=g)
+        with span("st_read"):
+            tgt3 = self.short_term_attn(curr_q, local_k, local_v, size_2d)
         if self.droppath_lst:
             tgt = tgt + self.droppath(tgt2 + tgt3, g)
         else:
@@ -129,6 +137,7 @@ class LongShortTermTransformer(nn.Module):
                         lt_dropout=lt_dropout,
                         st_dropout=st_dropout, droppath_lst=droppath_lst)
             for idx in range(num_layers))
+        self.block_spans = tuple(f"lstt.block{i}" for i in range(num_layers))
         num_norms = (num_layers - 1) if intermediate_norm else 0
         if final_norm:
             num_norms += 1
@@ -146,13 +155,14 @@ class LongShortTermTransformer(nn.Module):
         output = L.dropout(tgt, self.emb_dropout, generator)
         intermediates, memories = [], []
         for idx, layer in enumerate(self.layers):
-            output, mems = layer(
-                output,
-                lt_mems[idx] if lt_mems is not None else None,
-                st_mems[idx] if st_mems is not None else None,
-                curr_id_emb, self_pos, size_2d,
-                lt_valid_len=lt_valid_len, top_k=top_k,
-                max_mem_len_ratio=max_mem_len_ratio, generator=generator)
+            with span(self.block_spans[idx]):
+                output, mems = layer(
+                    output,
+                    lt_mems[idx] if lt_mems is not None else None,
+                    st_mems[idx] if st_mems is not None else None,
+                    curr_id_emb, self_pos, size_2d,
+                    lt_valid_len=lt_valid_len, top_k=top_k,
+                    max_mem_len_ratio=max_mem_len_ratio, generator=generator)
             intermediates.append(output)
             memories.append(mems)
 
@@ -267,13 +277,15 @@ class GatedPropagationModule(nn.Module):
             local_k, local_v = st_mem["k"], st_mem["v"]
             local_id_v = st_mem["id_v"]
 
-        cat_tgt2 = self.long_term_attn(
-            curr_q, global_k, torch.cat([global_v, global_id_v], dim=-1),
-            cat_curr_u, size_2d, valid_len=lt_valid_len, top_k=top_k,
-            max_mem_len_ratio=max_mem_len_ratio, generator=g)
-        cat_tgt3 = self.short_term_attn(
-            curr_q, local_k, torch.cat([local_v, local_id_v], dim=-1),
-            cat_curr_u, size_2d, g)
+        with span("lt_read"):
+            cat_tgt2 = self.long_term_attn(
+                curr_q, global_k, torch.cat([global_v, global_id_v], dim=-1),
+                cat_curr_u, size_2d, valid_len=lt_valid_len, top_k=top_k,
+                max_mem_len_ratio=max_mem_len_ratio, generator=g)
+        with span("st_read"):
+            cat_tgt3 = self.short_term_attn(
+                curr_q, local_k, torch.cat([local_v, local_id_v], dim=-1),
+                cat_curr_u, size_2d, g)
         cat_tgt = cat_tgt2 + cat_tgt3
         if self.droppath_lst:
             tgt = tgt + self.droppath(cat_tgt[..., :d_model], g)
@@ -322,6 +334,7 @@ class DualBranchGPM(nn.Module):
                 lt_dropout=lt_dropout, st_dropout=st_dropout,
                 droppath_lst=droppath_lst)
             for idx in range(num_layers))
+        self.block_spans = tuple(f"lstt.block{i}" for i in range(num_layers))
         num_norms = (num_layers - 1) if intermediate_norm else 0
         if final_norm:
             num_norms += 1
@@ -340,12 +353,14 @@ class DualBranchGPM(nn.Module):
         output, output_id = L.dropout(tgt, self.emb_dropout, generator), None
         intermediates, memories = [], []
         for idx, layer in enumerate(self.layers):
-            output, output_id, mems = layer(
-                output, output_id,
-                lt_mems[idx] if lt_mems is not None else None,
-                st_mems[idx] if st_mems is not None else None,
-                curr_id_emb, size_2d, lt_valid_len=lt_valid_len, top_k=top_k,
-                max_mem_len_ratio=max_mem_len_ratio, generator=generator)
+            with span(self.block_spans[idx]):
+                output, output_id, mems = layer(
+                    output, output_id,
+                    lt_mems[idx] if lt_mems is not None else None,
+                    st_mems[idx] if st_mems is not None else None,
+                    curr_id_emb, size_2d, lt_valid_len=lt_valid_len,
+                    top_k=top_k, max_mem_len_ratio=max_mem_len_ratio,
+                    generator=generator)
             intermediates.append(torch.cat([output, output_id], dim=-1))
             memories.append(mems)
 

@@ -33,6 +33,11 @@ kernel launch on any device); 'window' serves local reads with
 read and the local kernel for every dilation-1 local read of a CUDA
 tensor at any size.
 
+Each read counts its route (utils/tracing.py): `attn.global.flash` or
+`attn.global.dense`, with the keys it covered under `<route>.keys` (the
+live length where it is a host int, else every key handed over: the
+engine hands over the LT ring's live prefix), and `attn.local.<route>`.
+
 Layouts: sequences are (B, L, C).
 """
 
@@ -48,6 +53,7 @@ import torch.nn.functional as F
 
 from aot_tpu_torch.ops.kernels import flash_attn as fa
 from aot_tpu_torch.ops.kernels import local_window_attn as lwa
+from aot_tpu_torch.utils import tracing
 
 NEG_INF = -1e30
 
@@ -218,12 +224,17 @@ def global_attention(
     """
     b, lq, cq = q.shape
     lk = k.shape[1]
+    keys = min(valid_len, lk) if isinstance(valid_len, int) else lk
     if use_flash(lk, valid_len, top_k, max_mem_len_ratio, k.dtype):
+        tracing.count("attn.global.flash")
+        tracing.count("attn.global.flash.keys", keys)
         if in_training():
             return fa.flash_attention_train(q, k, v, valid_len, num_heads,
                                             d_att).to(v.dtype)
         return fa.flash_attention(q, k, v, valid_len, num_heads,
                                   d_att)[0].to(v.dtype)
+    tracing.count("attn.global.dense")
+    tracing.count("attn.global.dense.keys", keys)
     h = num_heads
     d = d_att if d_att is not None else cq // h
 
@@ -397,6 +408,11 @@ def local_attention(
               d_att=d_att)
     route = local_route(size_2d[0] * size_2d[1], q.device.type, dilation,
                         in_training())
+    if route == "none":
+        raise NotImplementedError(
+            f"local attention on {q.device} at dilation {dilation}: the CUDA "
+            "kernel serves dilation 1 only (see ROADMAP.md)")
+    tracing.count("attn.local." + route)
     if route == "window":
         return local_attention_window(q, k, v, rel_bias, rel_v,
                                       dilation=dilation, **kw)
@@ -406,11 +422,7 @@ def local_attention(
     if route == "wide":
         return lwa.local_window_attention_wide_cuda(q, k, v, rel_bias, rel_v,
                                                     **kw)
-    if route == "flat":
-        return lwa.local_window_attention_cuda(q, k, v, rel_bias, rel_v, **kw)
-    raise NotImplementedError(
-        f"local attention on {q.device} at dilation {dilation}: the CUDA "
-        "kernel serves dilation 1 only (see ROADMAP.md)")
+    return lwa.local_window_attention_cuda(q, k, v, rel_bias, rel_v, **kw)
 
 
 # --- gated propagation (DeAOT) ---------------------------------------------

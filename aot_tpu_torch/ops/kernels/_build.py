@@ -6,7 +6,9 @@ Each library is compiled at first use with nvcc for sm_90a into
 source, the csrc/ headers it includes and the flags, so a changed source
 or header rebuilds what includes it and
 an unchanged one loads at once. Nothing here runs at import time: the CPU
-tests import the package on machines without nvcc.
+tests import the package on machines without nvcc. Each nvcc build counts
+`build.<name>` and its seconds `build.<name>.s`, each library loaded
+`load.<name>` (utils/tracing.py counters).
 """
 
 from __future__ import annotations
@@ -17,8 +19,11 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List
+
+from aot_tpu_torch.utils import tracing
 
 _PKG = Path(__file__).resolve().parents[2]          # aot_tpu_torch/
 CSRC = _PKG / "csrc"
@@ -65,10 +70,12 @@ def build(*names: str) -> List[Path]:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, cmd, tmp, out, proc))
+        jobs.append((name, cmd, tmp, out, proc, time.perf_counter()))
     failed = []
-    for name, cmd, tmp, out, proc in jobs:
+    for name, cmd, tmp, out, proc, t0 in jobs:
         BUILD_LOGS[name] = proc.communicate()[0]
+        tracing.count(f"build.{name}")
+        tracing.count(f"build.{name}.s", time.perf_counter() - t0)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({' '.join(cmd)}):\n{BUILD_LOGS[name]}")
         else:
@@ -83,4 +90,5 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build(name)[0]))
+        tracing.count(f"load.{name}")
     return lib

@@ -12,8 +12,8 @@ ops/attention.py `use_flash`.
   flash_attention        entry point: a CPU tensor takes the plain version,
                          a CUDA tensor launches the kernel or raises — there
                          is no fallback
-  flash_attention_cuda   the kernel wrapper (counts LAUNCHES, or
-                         BF16_LAUNCHES for bf16: one per call, which runs
+  flash_attention_cuda   the kernel wrapper (counter
+                         launch.flash_attn_fwd[_bf16]: one per call, which runs
                          the kernel's passes and the merge of key splits)
   flash_attention_plain  the same function in plain PyTorch: a masked
                          softmax over the live keys
@@ -45,6 +45,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from aot_tpu_torch.ops.kernels import _build
+from aot_tpu_torch.utils import tracing
 
 NEG_INF = -1e30
 MAX_D = 256       # q/k channels per head (csrc/flash_attn_fwd.cu kMaxD)
@@ -59,12 +60,6 @@ _TILE_Q = 64      # queries a block (csrc/flash_attn_fwd.cu kBQ)
 SLAB_FLOATS = 1 << 26
 
 ValidLen = Union[None, int, torch.Tensor]
-
-# Kernel launches since the count was last reset, fp32 and bf16 apart; the
-# wrapper adds one per launch and nothing else touches them, so a run can
-# show it went through the kernel.
-LAUNCHES = 0
-BF16_LAUNCHES = 0
 
 
 def _dims(q, v, num_heads: int, d_att: Optional[int]) -> Tuple[int, int]:
@@ -255,7 +250,6 @@ def flash_attention_cuda(
     may be strided views (the LT ring's live prefix) as long as each
     token's channels are contiguous. Raises on any input it does not take,
     and if the launch fails."""
-    global LAUNCHES, BF16_LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: q is on {q.device}")
     dt = q.dtype
@@ -290,7 +284,7 @@ def flash_attention_cuda(
     if dt == torch.bfloat16:
         out, lse = _launch_bf16(q, k, v, valid_ptr, valid_all, b, lq, lk, h, d,
                                 dv)
-        BF16_LAUNCHES += 1
+        tracing.count("launch.flash_attn_fwd_bf16")
         return out, lse
     splits, score_splits, slab, scratch = fwd_plan(b, lq, lk, h, dv,
                                                    sm_count(dev))
@@ -308,7 +302,7 @@ def flash_attention_cuda(
     if err != 0:
         raise RuntimeError(
             f"flash_attn_fwd failed to launch: CUDA error {err}")
-    LAUNCHES += 1
+    tracing.count("launch.flash_attn_fwd")
     return out, lse
 
 

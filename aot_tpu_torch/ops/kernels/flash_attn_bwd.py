@@ -9,8 +9,8 @@ point with what the forward saved.
   flash_attention_bwd        entry point: a CPU tensor takes the plain
                              version, a CUDA tensor launches the kernels or
                              raises — there is no fallback
-  flash_attention_bwd_cuda   the kernel wrapper (counts LAUNCHES, or
-                             BF16_LAUNCHES for bf16: one per call, which
+  flash_attention_bwd_cuda   the kernel wrapper (counter
+                             launch.flash_attn_bwd[_bf16]: one per call, which
                              runs D and the packing of the operands, then
                              for d, dv <= 32 the dQ kernel and the dK and
                              dV kernel, or above, slab by slab, the scores
@@ -46,12 +46,7 @@ import torch
 from aot_tpu_torch.ops.kernels import _build, flash_attn
 from aot_tpu_torch.ops.kernels.flash_attn import (NEG_INF, ValidLen, _check,
                                                   _dims, shape_error)
-
-# Wrapper calls that launched the kernels since the count was last reset,
-# fp32 and bf16 apart; nothing else touches them, so a run can show it went
-# through the kernels.
-LAUNCHES = 0
-BF16_LAUNCHES = 0
+from aot_tpu_torch.utils import tracing
 
 _ENTRY = {torch.float32: "flash_attn_bwd", torch.bfloat16: "flash_attn_bwd_bf16"}
 
@@ -167,7 +162,6 @@ def flash_attention_bwd_cuda(
     """Launch the CUDA kernels (fp32 or bf16 q, k, v, out and dout). q, k,
     v may be strided views, as the forward takes them. Raises on any input
     they do not take, and if a launch fails."""
-    global LAUNCHES, BF16_LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_cuda: q is on {q.device}")
     dt = q.dtype
@@ -224,10 +218,8 @@ def flash_attention_bwd_cuda(
     if err != 0:
         raise RuntimeError(
             f"{_ENTRY[dt]} failed to launch: CUDA error {err}")
-    if dt == torch.bfloat16:
-        BF16_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+    tracing.count("launch.flash_attn_bwd_bf16" if dt == torch.bfloat16
+                  else "launch.flash_attn_bwd")
     return dq, dk, dv_
 
 

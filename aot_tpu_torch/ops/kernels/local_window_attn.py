@@ -16,10 +16,10 @@ which grids went where; both launch the kernel of q's dtype.
                                      plain version, a CUDA tensor launches
                                      the kernel on the flat route or raises
                                      — there is no fallback
-  local_window_attention_cuda        the flat route's wrapper (LAUNCHES;
-                                     BF16_LAUNCHES for bf16)
-  local_window_attention_wide_cuda   the wide route's wrapper
-                                     (WIDE_LAUNCHES; WIDE_BF16_LAUNCHES)
+  local_window_attention_cuda        the flat route's wrapper (counter
+                                     launch.local_window_attn[_bf16])
+  local_window_attention_wide_cuda   the wide route's wrapper (counter
+                                     launch.local_window_attn_wide[_bf16])
   local_window_attention_plain       the same function in plain PyTorch:
                                      the win² shifted slices of the
                                      zero-padded image (F.unfold), no
@@ -53,20 +53,13 @@ import torch.nn.functional as F
 
 from aot_tpu_torch.ops.kernels import _build
 from aot_tpu_torch.ops.kernels.flash_attn import sm_count
+from aot_tpu_torch.utils import tracing
 
 NEG_INF = -1e30
 MAX_DIS = 7       # window of at most 15 x 15 slots: 16 + 2*7 halo keys fit
                   # the kernel's 32-key band
 MAX_D = 512       # q/k channels per head: a 1-row score tile's q rows and
                   # k ring must fit shared memory
-
-# Kernel launches since the count was last reset, one count per route and
-# instantiation; each wrapper adds one per launch and nothing else touches
-# them, so a run can show it went through the kernel.
-LAUNCHES = 0              # the flat route (up to DENSE_LOCAL_MAX_TOKENS), fp32
-WIDE_LAUNCHES = 0         # the wide route (above it), fp32
-BF16_LAUNCHES = 0         # the flat route, bf16
-WIDE_BF16_LAUNCHES = 0    # the wide route, bf16
 
 # csrc/local_window_attn_tc.cu's geometry (the fp32 kernel)
 TILE_X = 16           # queries a tile row (the mma tile's rows)
@@ -343,13 +336,10 @@ def local_window_attention_cuda(
     """The flat route: launch the CUDA kernel of q's dtype (dilation 1,
     fp32 or bf16).
     Raises on any input it does not take, and if the launch fails."""
-    global LAUNCHES, BF16_LAUNCHES
     out = _launch("local_window_attention_cuda", q, k, v, rel_bias, rel_v,
                   num_heads, size_2d, max_dis, d_att)
-    if q.dtype == torch.bfloat16:
-        BF16_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+    tracing.count("launch.local_window_attn_bf16" if q.dtype == torch.bfloat16
+                  else "launch.local_window_attn")
     return out
 
 
@@ -367,13 +357,11 @@ def local_window_attention_wide_cuda(
 ) -> torch.Tensor:
     """The wide route: the same kernels, counted apart (dilation 1, fp32
     or bf16). Raises on any input it does not take, and if the launch fails."""
-    global WIDE_LAUNCHES, WIDE_BF16_LAUNCHES
     out = _launch("local_window_attention_wide_cuda", q, k, v, rel_bias,
                   rel_v, num_heads, size_2d, max_dis, d_att)
-    if q.dtype == torch.bfloat16:
-        WIDE_BF16_LAUNCHES += 1
-    else:
-        WIDE_LAUNCHES += 1
+    tracing.count("launch.local_window_attn_wide_bf16"
+                  if q.dtype == torch.bfloat16
+                  else "launch.local_window_attn_wide")
     return out
 
 

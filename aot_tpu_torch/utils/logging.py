@@ -4,7 +4,8 @@ The reference logs scalars/images to tensorboardX behind TRAIN_TBLOG
 (trainer.py:132-134, 655-684). Here: a dependency-free JSONL metrics stream
 (one object per log step) + optional TensorBoard if the package exists, and
 per-step prediction image dumps (reference DIR_IMG_LOG, trainer.py:622-653),
-and ProfilerHook, a torch.profiler trace around any stretch of a run.
+and ProfilerHook, a torch.profiler trace around any stretch of a run with
+the program's spans beside the kernels.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import time
 from typing import Dict
 
 import numpy as np
+
+from aot_tpu_torch.utils import tracing
 
 
 class MetricsLogger:
@@ -72,15 +75,18 @@ def save_pred_image_log(log_dir: str, step: int, frame: np.ndarray,
 class ProfilerHook:
     """torch.profiler trace capture (the counterpart of aot_tpu/utils/
     logging.py's ProfilerHook, which records jax.profiler traces): host
-    activity, plus the card's kernels and copies when torch sees a card.
-    `start` creates `trace_dir` and starts recording; `stop` writes the
-    recording there as a Chrome trace (chrome://tracing, Perfetto) and
-    returns its path. `stop` without a running trace does nothing and
-    returns None."""
+    activity, plus the card's kernels and copies when torch sees a card,
+    and the program's own spans (utils/tracing.py). `start` creates
+    `trace_dir`, turns spans on and starts recording; `stop` restores the
+    span setting `start` found, takes the recorded spans and writes the
+    recording there as a Chrome trace (chrome://tracing, Perfetto), the
+    spans on a track of their own above the kernels, and returns its path.
+    `stop` without a running trace does nothing and returns None."""
 
     def __init__(self, trace_dir: str):
         self.trace_dir = trace_dir
         self._prof = None
+        self._spans_were = False
 
     def start(self):
         import torch
@@ -91,6 +97,7 @@ class ProfilerHook:
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         self._prof = profile(activities=activities)
+        self._spans_were = tracing.enable_spans(True)
         self._prof.start()
 
     def stop(self):
@@ -98,7 +105,15 @@ class ProfilerHook:
             return None
         prof, self._prof = self._prof, None
         prof.stop()
+        tracing.enable_spans(self._spans_were)
+        spans = tracing.take_spans()
         path = os.path.join(self.trace_dir,
                             f"trace_{os.getpid()}_{time.time_ns()}.json")
         prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        trace["traceEvents"] += tracing.chrome_events(
+            spans, int(trace.get("baseTimeNanoseconds", 0)))
+        with open(path, "w") as f:
+            json.dump(trace, f)
         return path

@@ -344,37 +344,37 @@ PEAK_BF16_TC_FLOPS = 989e12
 BF16_TOL = 1e-2       # of the largest entry: bf16 kernel vs bf16 plain
 BATCH_TOL = 1e-4      # phase 21: a batch row's logits vs the video alone
 
-# kernel name -> (module under aot_tpu_torch.ops.kernels, the launch counter
-# its wrapper keeps, the TPU kernel it replaces, its source csrc/<source>.cu).
+# kernel name -> (the launch counter its wrapper counts, utils/tracing.py
+# `launch.<name>`; the TPU kernel it replaces; its source csrc/<source>.cu).
 # The two local-window entries are the two routes of ops.attention.
 # local_route (flat up to 2,500 query tokens, wide above), each with its own
 # wrapper and count; both launch the one kernel of local_window_attn_tc.cu.
 KERNELS = {
-    "local_window_attn": ("local_window_attn", "LAUNCHES",
+    "local_window_attn": ("launch.local_window_attn",
                           "aot_tpu/ops/pallas/local_window_attn.py:414",
                           "local_window_attn_tc"),
-    "local_window_attn_wide": ("local_window_attn", "WIDE_LAUNCHES",
+    "local_window_attn_wide": ("launch.local_window_attn_wide",
                                "aot_tpu/ops/pallas/local_window_attn.py:236",
                                "local_window_attn_tc"),
-    "flash_attn_fwd": ("flash_attn", "LAUNCHES",
+    "flash_attn_fwd": ("launch.flash_attn_fwd",
                        "aot_tpu/ops/pallas/flash_attn_vjp.py:51",
                        "flash_attn_fwd"),
-    "flash_attn_bwd": ("flash_attn_bwd", "LAUNCHES",
+    "flash_attn_bwd": ("launch.flash_attn_bwd",
                        "aot_tpu/ops/pallas/flash_attn_vjp.py:267",
                        "flash_attn_bwd"),
     # the bf16 instantiations (bf16 serving), each with its own count
-    "local_window_attn_bf16": ("local_window_attn", "BF16_LAUNCHES",
+    "local_window_attn_bf16": ("launch.local_window_attn_bf16",
                                "aot_tpu/ops/pallas/local_window_attn.py:414",
                                "local_window_attn_bf16"),
     "local_window_attn_wide_bf16": (
-        "local_window_attn", "WIDE_BF16_LAUNCHES",
+        "launch.local_window_attn_wide_bf16",
         "aot_tpu/ops/pallas/local_window_attn.py:236",
         "local_window_attn_bf16"),
-    "flash_attn_fwd_bf16": ("flash_attn", "BF16_LAUNCHES",
+    "flash_attn_fwd_bf16": ("launch.flash_attn_fwd_bf16",
                             "aot_tpu/ops/pallas/flash_attn_vjp.py:51",
                             "flash_attn_fwd_bf16"),
     # the bf16 instantiation of the backward (bf16 training)
-    "flash_attn_bwd_bf16": ("flash_attn_bwd", "BF16_LAUNCHES",
+    "flash_attn_bwd_bf16": ("launch.flash_attn_bwd_bf16",
                             "aot_tpu/ops/pallas/flash_attn_vjp.py:267",
                             "flash_attn_bwd"),
 }
@@ -394,27 +394,34 @@ def expected_launches(kernels, frames: int, flash_reads: int, layers: int,
 
 
 def kernel_counters():
-    """kernel name -> (its wrapper's module, the name of its count)."""
-    import importlib
-
-    return {name: (importlib.import_module(
-        f"aot_tpu_torch.ops.kernels.{mod}"), attr)
-        for name, (mod, attr, _, _) in KERNELS.items()}
+    """kernel name -> the name of its launch counter."""
+    return {name: counter for name, (counter, _, _) in KERNELS.items()}
 
 
 def reset_counts(kernels) -> None:
-    for mod, attr in kernels.values():
-        setattr(mod, attr, 0)
+    """Zero the program's counters (only the launch counts are read
+    here)."""
+    from aot_tpu_torch.utils import tracing
+
+    del kernels
+    tracing.reset_counters()
 
 
 def read_counts(kernels):
-    return {name: getattr(mod, attr) for name, (mod, attr) in kernels.items()}
+    from aot_tpu_torch.utils import tracing
+
+    now = tracing.counters()
+    return {name: now.get(counter, 0) for name, counter in kernels.items()}
 
 
 def restore_counts(kernels, counts) -> None:
-    """Set the counts back (a check's own launches are not the path's)."""
-    for name, (mod, attr) in kernels.items():
-        setattr(mod, attr, counts[name])
+    """Set the launch counts back (a check's own launches are not the
+    path's)."""
+    from aot_tpu_torch.utils import tracing
+
+    tracing.reset_counters()
+    for name, counter in kernels.items():
+        tracing.count(counter, counts[name])
 
 
 def card_line() -> str:
@@ -2858,8 +2865,8 @@ def device_busy_ms(events) -> float:
 def profile_demo(device, card: str, root: str, data: str, kernel: str,
                  host_ms: float) -> None:
     """Phase 32: DEMO_PROFILED demo frames (after the reference frame)
-    inside ProfilerHook; the Chrome trace it writes must name `kernel`.
-    Prints the card's busy time a frame beside the demo's own clock (in
+    inside ProfilerHook; the Chrome trace it writes must name `kernel`
+    and hold an `infer.step` span a frame. Prints the card's busy time a frame beside the demo's own clock (in
     this run and `host_ms`, the unprofiled fp32 run's): the busy time
     counts the random model's build and the reference frame too, so it
     bounds a frame's device time from above."""
@@ -2878,13 +2885,19 @@ def profile_demo(device, card: str, root: str, data: str, kernel: str,
         events = json.load(f)["traceEvents"]
     hits = [e for e in events if e.get("cat") == "kernel"
             and kernel in e.get("name", "")]
+    steps = [e for e in events if e.get("cat") == "program_span"
+             and e["name"] == "infer.step"]
+    if len(steps) != DEMO_PROFILED:
+        raise AssertionError(f"phase 32: {len(steps)} infer.step spans in "
+                             f"the trace, not {DEMO_PROFILED}")
     kernel_ms = sum(e.get("dur", 0) for e in events
                     if e.get("cat") == "kernel") / 1e3
     busy = device_busy_ms(events)
     own = stats[0]["seconds"] * 1e3 / stats[0]["frames"]
     print(f"phase 32: ProfilerHook around {DEMO_PROFILED} demo frames (and "
           f"the reference frame): {os.path.getsize(trace)} bytes of Chrome "
-          f"trace, {len(events)} events, {kernel} {len(hits)} times, "
+          f"trace, {len(events)} events ({len(steps)} infer.step spans), "
+          f"{kernel} {len(hits)} times, "
           f"{sum(e.get('dur', 0) for e in hits) / 1e3:.3f} ms; the card busy "
           f"{busy:.3f} ms ({kernel_ms:.3f} ms of kernels), "
           f"{busy / (DEMO_PROFILED + 1):.3f} ms a frame with the model's "
@@ -3777,8 +3790,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"aot_tpu_torch/csrc/{KERNELS[name][3]}.cu",
-        "replaces": KERNELS[name][2],
+        "source": f"aot_tpu_torch/csrc/{KERNELS[name][2]}.cu",
+        "replaces": KERNELS[name][1],
         "launches": total[name],
         "max_abs_err": max_err[name],
         "ms": times[name][0],

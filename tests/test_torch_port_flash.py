@@ -27,6 +27,7 @@ from aot_tpu.ops.pallas.flash_attn_vjp import flash_attention as jax_flash
 from aot_tpu_torch.ops import attention as att
 from aot_tpu_torch.ops.kernels import flash_attn as fa
 from aot_tpu_torch.ops.kernels import local_window_attn as lwa
+from aot_tpu_torch.utils import tracing
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BLOCK = 128
@@ -165,14 +166,21 @@ def test_use_flash_rule(lk, valid, top_k, ratio, want):
 def test_global_attention_routes_long_memories_to_flash(lk):
     """On a CPU tensor global_attention takes the flash path's plain version
     from FLASH_MIN_KEYS keys on (bit for bit) and the dense path below;
-    both agree, and no kernel is launched."""
+    both agree, the read is counted under its route with the keys handed
+    over (a tensor live length: every key), and no kernel is launched."""
     b, lq, h, d, dv = 2, 6, 1, 8, 16
     q, k, v = (torch.from_numpy(x) for x in _mk(b, lq, lk, h, d, dv, 3))
     valid = torch.tensor([lk, lk - 700], dtype=torch.int32)
-    before = fa.LAUNCHES
+    before = tracing.counters()
     got = att.global_attention(q, k, v, h, d, valid_len=valid)
     flash, _ = fa.flash_attention(q, k, v, valid, h, d)
-    assert fa.LAUNCHES == before
+    after = tracing.counters()
+    assert {k: v for k, v in after.items() if k.startswith("launch.")} == {
+        k: v for k, v in before.items() if k.startswith("launch.")}
+    route = "flash" if lk >= att.FLASH_MIN_KEYS else "dense"
+    for name, n in ((f"attn.global.{route}", 1),
+                    (f"attn.global.{route}.keys", lk)):
+        assert after[name] == before.get(name, 0) + n
     if lk >= att.FLASH_MIN_KEYS:
         torch.testing.assert_close(got, flash, rtol=0, atol=0)
     else:

@@ -28,6 +28,7 @@ from aot_tpu_torch.ops import attention as att
 from aot_tpu_torch.ops.kernels import flash_attn as fa
 from aot_tpu_torch.ops.kernels import flash_attn_bwd as fab
 from aot_tpu_torch.ops.kernels import local_window_attn as lwa
+from aot_tpu_torch.utils import tracing
 from test_torch_port_flash_bwd_plan import c_plan
 
 JAX_TOL = dict(rtol=5e-4, atol=5e-4)
@@ -126,11 +127,12 @@ def test_empty_row_gives_zero_grads():
 
 def test_training_dispatch_routes():
     """In the training context a short memory still takes the Function
-    (backward counted by neither kernel on the CPU), and local attention
-    gives gradients through the window form."""
+    (counted as a flash read; backward counted by neither kernel on the
+    CPU), and local attention gives gradients through the window form
+    (counted as a 'window' read)."""
     q, k, v, w = _mk(1, 17 * 17, 17 * 17, 8, 4, 4, seed=3)
     tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
-    before = (fa.LAUNCHES, fab.LAUNCHES, lwa.LAUNCHES)
+    before = tracing.counters()
     assert not att.use_flash(289, None, -1, -1.0)
     with att.attn_training_context():
         assert att.use_flash(289, None, -1, -1.0)
@@ -141,7 +143,11 @@ def test_training_dispatch_routes():
                                   size_2d=(17, 17), max_dis=7, d_att=4)
         ((out + loc) * torch.from_numpy(w)).sum().backward()
     assert not att.in_training()
-    assert (fa.LAUNCHES, fab.LAUNCHES, lwa.LAUNCHES) == before
+    after = tracing.counters()
+    assert {k: v for k, v in after.items() if k.startswith("launch.")} == {
+        k: v for k, v in before.items() if k.startswith("launch.")}
+    for name in ("attn.global.flash", "attn.local.window"):
+        assert after[name] == before.get(name, 0) + 1
     assert rel.grad is not None and tq.grad is not None
 
 

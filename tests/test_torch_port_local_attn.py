@@ -22,6 +22,7 @@ from aot_tpu.ops.pallas.local_window_attn import (local_window_attention,
                                                    local_window_attention_wide)
 from aot_tpu_torch.ops import attention as att
 from aot_tpu_torch.ops.kernels import local_window_attn as lwa
+from aot_tpu_torch.utils import tracing
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 TIGHT = dict(atol=1e-5, rtol=1e-5)
@@ -69,16 +70,21 @@ def test_plain_matches_dense_oracle_and_flat_kernel(hgt, wid, h, d, dv, m,
 @pytest.mark.parametrize("dilation", [1, 2])
 def test_dispatch_on_cpu_takes_plain_path(dilation):
     """ops.attention.local_attention sends a CPU tensor to the plain
-    version (any dilation) and the kernel's launch count does not move."""
+    version (any dilation), counted as a 'plain' read, and no kernel launch
+    is counted."""
     args = _mk(1, 10, 12, 2, 8, 8, 2, True, seed=1)
     j, t = _both(args)
     kw = dict(num_heads=2, size_2d=(10, 12), max_dis=2, d_att=8,
               dilation=dilation)
-    before = lwa.LAUNCHES
+    before = tracing.counters()
     got = att.local_attention(*t, **kw).numpy()
     entry = lwa.local_window_attention(*t, num_heads=2, size_2d=(10, 12),
                                        max_dis=2, d_att=8).numpy()
-    assert lwa.LAUNCHES == before
+    after = tracing.counters()
+    assert {k: v for k, v in after.items() if k.startswith("launch.")} == {
+        k: v for k, v in before.items() if k.startswith("launch.")}
+    assert (after["attn.local.plain"]
+            == before.get("attn.local.plain", 0) + 1)
     np.testing.assert_allclose(got, np.asarray(_local_attention_dense(*j, **kw)),
                                **TOL)
     if dilation == 1:

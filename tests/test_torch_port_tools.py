@@ -13,7 +13,8 @@ utils/weights.load_model) against the JAX package's tools on the CPU.
 - overfit_check: the npz batch and stream each tool writes load in the
   other, the logged lines carry tools/overfit_check.py's keys, and
   --init_pth loads strictly.
-- ProfilerHook writes a Chrome trace; stop without a trace does nothing.
+- ProfilerHook writes a Chrome trace with the program's spans on their own
+  track; stop without a trace does nothing.
 - load_model takes DistributedDataParallel's 'module.'-prefixed keys, as
   aot_tpu's loader does.
 
@@ -41,6 +42,7 @@ from aot_tpu_torch.utils.weights import load_model
 from aot_tpu_torch.models import build_vos_model
 from aot_tpu_torch.tools import demo, overfit_check, score
 from aot_tpu_torch.utils.image import vos_palette
+from aot_tpu_torch.utils import tracing
 from aot_tpu_torch.utils.logging import ProfilerHook
 from chip_smoke import ellipse_clip
 from test_torch_port_model import jax_aott
@@ -337,15 +339,31 @@ def test_overfit_init_pth_loads_strictly(static_dir, monkeypatch, capsys):
 
 
 def test_profiler_hook_writes_a_chrome_trace(tmp_path):
+    """The trace holds the host's operations and, on a track of their own,
+    the program's spans on the same clock; spans are on while the hook runs
+    and off again after it."""
     hook = ProfilerHook(str(tmp_path / "trace"))
     assert hook.stop() is None
+    assert not tracing.spans_on()
     hook.start()
+    assert tracing.spans_on()
     x = torch.randn(64, 64)
-    (x @ x).sum().item()
+    with tracing.span("stage"):
+        (x @ x).sum().item()
     path = hook.stop()
+    assert not tracing.spans_on()
+    assert tracing.take_spans() == []           # the hook took them
     assert Path(path).parent == tmp_path / "trace"
     events = json.loads(Path(path).read_text())["traceEvents"]
-    assert any("matmul" in str(e.get("name", "")) for e in events)
+    matmul = [e for e in events if "matmul" in str(e.get("name", ""))
+              and e.get("ph") == "X"]
+    assert matmul
+    stage = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["name"] for e in stage] == ["stage"]
+    (stage,) = stage
+    assert stage["pid"] != matmul[0]["pid"]
+    assert (stage["ts"] <= matmul[0]["ts"]
+            <= stage["ts"] + stage["dur"])      # one timeline
     assert hook.stop() is None
     assert list((tmp_path / "trace").iterdir()) == [Path(path)]
 
