@@ -48,40 +48,73 @@
 // Design, two passes (dv > 128: DeAOT's dv = 1024). A 64 x 1024 fp32
 // accumulator (256 KB) fits no block, so dv is tiled over the grid, and in
 // one pass each value tile would recompute the scores (at d = 128 and a
-// 128-column tile, half of the products; 1.97 ms against 1.15 ms for the
-// two passes at Lk = 19,800 on an H100 80GB HBM3 at 700 W). score_kernel
-// computes the scaled scores once into a scratch (71 MB at Lq = 900,
-// Lk = 19,800) with each key split's row max and sum; pv_kernel takes lse
-// from those and computes out = exp(S - lse) V per 128-column value tile,
-// reading the scores back through L2. Both passes split their key loops
-// to fill the card (one DeAOTL video: 15 query tiles, 120 value-tile
-// blocks), and the output's splits are added in order by
-// sum_splits_kernel. The scratch is bounded: the two passes run over slabs
-// of `slab` query rows (a multiple of 64, the wrapper's choice), one slab
-// after the other, so a 1080p read (Lq = 7,232, 418 MB of scores at 14,464
-// keys) takes the same kernels in two slabs.
+// 256-column tile, a quarter of the products again, 3 x 45.9 GFLOP more a
+// 107,136-key read). score_kernel computes the scaled scores once into a
+// scratch with each key split's row max and sum (3xTF32 mma.sync, as
+// above); pv_kernel takes lse from those and computes out = exp(S - lse) V
+// over 256-column value tiles on wgmma, reading the scores back through
+// L2. The two passes run over slabs of `slab` query rows (a multiple of 64,
+// the wrapper's choice), one slab after the other, so the scratch is
+// bounded; each pass splits its key loop to fill the card, and the
+// wrapper picks the slab and the P V splits together so that a slab's P V
+// grid fills whole waves of one block a multiprocessor (a DeAOTL read at
+// 480p, Lq = 1,674 over 107,136 keys: 9 slabs of 192 rows, 3 query tiles x
+// 4 value tiles x 11 splits = 132 blocks). Each slab's output splits are
+// added in order by sum_splits_kernel.
 //
-// What bounds it: arithmetic. The function is 41 GFLOP at DeAOTL's longest
-// memory (Lq = 900, Lk = 19,800, d = 128, dv = 1024), 123 GFLOP of TF32
-// tensor-core products in 3xTF32; at 495 TFLOP/s of dense TF32 (165
-// TFLOP/s of fp32-accurate products) that is 0.249 ms. mma.sync reaches
-// 305 TFLOP/s of TF32 on an H100 80GB HBM3 (a loop of independent
-// products), so this design can come no closer than 0.40 ms; it runs
-// 1.1-1.3 ms: each operand element a warp reads costs a shared-memory load
-// and four integer and fp32 instructions for its split, which share the
-// issue slots with the products, and only 8 warps an SM (registers,
-// shared memory) hide their latency. K and V (81 MB at Lk = 19,800) are
-// read from device memory once and from L2 by each query tile. At AOTT's
+// pv_kernel's layout of V. A block is 64 query rows x 256 value columns,
+// two warpgroups of 128 columns each, a key tile 32 keys. A ring of two
+// stages is filled by TMA: the tile's V rows as one box (32 rows
+// of 1 KB, as in memory) and its 64 score rows as one box (rows of 128
+// bytes, 16-byte chunks XOR-swizzled over 8 rows, so that the A
+// fragments' reads hit 32 banks). `.tf32` wgmma reads B K-major only, and
+// P V sums over keys, so each thread takes one value column of the box and
+// writes it transposed and split, once, as hi and lo TF32 copies in
+// wgmma.cuh's packed layout: 8 columns x 4 keys a 128-byte core matrix,
+// 1,024 bytes between groups of 8 columns (SBO), 128 between the two core
+// matrices of an 8-key k-step (LBO); 64 KB a tile, into one of two buffers.
+// Every query row of the block shares the split tile; neither copy exists
+// in device memory. A warpgroup's product of a k-step is three m64n128k8
+// products, lo hi + hi lo + hi hi, P's hi and lo from registers: P = exp2(S
+// log2e - lse log2e) of the warpgroup's 64 rows, split in registers (each
+// warpgroup exponentiates its own: a 64 x 256 accumulator with its
+// per-tile fold would need 256 registers a thread, over the limit of 255,
+// so a score is exponentiated 8 times a read). While tile i's products run,
+// each thread splits its column of tile i + 1 and builds tile i + 1's P
+// (straight-line code: ptxas serializes the products around any branch
+// there); then tile i's products, summed apart, are added to the output in
+// fp32. A warpgroup splits the columns it reads, so the two meet only when
+// they release a ring stage: the second to release it refills it, so
+// neither waits for the other. Shared memory: 2 x 64 KB split + 2 x 40 KB
+// ring = 215 KB, one block a multiprocessor.
+//
+// What bounds it: arithmetic. P V at that read is 2 x 1,674 x 107,136 x
+// 1,024 = 367 GFLOP, 2.23 ms at 165 TFLOP/s of fp32-accurate products
+// (3xTF32: 495 / 3), 6.7 ms a frame of three reads. pv_kernel takes 4.6-4.7
+// ms a read (48% of that bound; the mma.sync version took 10.05 ms), ~14
+// ms a frame, on an H100 80GB HBM3 at 700 W. In the way, by timing the
+// kernel with parts taken out: the products with their copies, fold and
+// barriers alone take 2.7 ms (82% of the bound), the split of V and the
+// building of P alone 2.9 ms, and the two overlap only to 4.6 ms. The
+// split and P are latency-bound: two warps a scheduler, with 214 registers
+// a thread (128 of them accumulators) leaving little room to keep loads in
+// flight. A transposer warpgroup of its own (384 threads, setmaxnreg) ran
+// 8.2 ms: ptxas held every thread to 168 registers and the consumers
+// spilled. The one-pass
+// fwd_kernel (mma.sync) is bound the same way: each operand element a warp
+// reads costs a shared-memory load and four instructions for its split,
+// and 305 TFLOP/s of TF32 is mma.sync's own rate on this card; at AOTT's
 // training shape (B = 16, h = 8, Lq = Lk = 900, d = dv = 32) the bound is
-// 0.080 ms and the kernel runs 0.37-0.44 ms. wgmma with TMA and warp
-// specialisation is the next step.
+// 0.080 ms and the kernel runs 0.37-0.44 ms.
 //
 // bf16 q, k and v go to flash_attn_fwd_bf16.cu (wgmma).
 
+#include <cuda.h>   // CUtensorMap (the encoder is found at run time)
 #include <cuda_runtime.h>
 
 #include "bf16_mma.cuh"
 #include "tf32x3.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -146,6 +179,31 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One box of a 3-D (or 2-D) tensor map at coordinates (c0, c1, c2) into
+// shared memory, completing on `bar`
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int c0, int c1, int c2,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          wg::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(wg::smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_box_2d(void* dst, const CUtensorMap* map,
+                                           int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          wg::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(wg::smem_u32(bar))
+      : "memory");
 }
 
 template <typename E, int D, int DVT, int BK>
@@ -508,37 +566,64 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args<E> a) {
 }
 
 // Pass 2: out = exp(S - lse) V for a 64-query tile of the slab, one value
-// tile of DVT columns and one split of the live keys, lse from pass 1's
-// statistics (so no running rescale). Each 32-key tile's P V is summed apart and added to
-// the output in fp32. S and V tiles go through a cp.async ring; P enters
-// the product as A fragments read from the S tile in shared memory.
-template <typename E, int DVT>
-struct PvTiles {
-  static constexpr int kLdS = kBKP + 4;   // = 4 mod 32: A reads conflict-free
-  static constexpr int kLdV = DVT + 8;    // = 8 mod 32: B reads (rows t, t + 4)
-  static constexpr int kS = kBQ * kLdS;   // fp32 scores
-  static constexpr int kV = kBKP * kLdV;  // values in E
-  static constexpr size_t kSmem = 2 * (sizeof(float) * kS + sizeof(E) * kV);
+// tile of kPvCols columns and one split of the live keys, lse from pass 1's
+// statistics (so no running rescale). Two warpgroups, each the tile's 64
+// rows over 128 of its columns, on wgmma (3xTF32, P from registers, V from
+// shared memory). A ring of two stages is filled by tensor-map copies
+// (TMA): a stage is one key tile's V rows (a box of kPvCols x 32
+// floats) and its 64 score rows (a box of 32 x 64 floats, its 16-byte
+// chunks XOR-swizzled by TMA in atoms of 8 rows of 128 bytes, so that the
+// A fragments' reads hit 32 banks). Each thread splits one column of each
+// V tile once into hi and lo TF32 copies of V^T, K-major in wgmma.cuh's
+// packed layout, into one of two buffers, and builds the next tile's P,
+// while the products of this tile run from the other buffer. A column is
+// split by a thread of the warpgroup that reads it, so the two warpgroups
+// meet only where a ring stage is released: thread 0 issues the first
+// copies, and the second warpgroup to release a stage refills it.
+// Each tile's P V is summed in its own accumulator and added to the output
+// in fp32.
+constexpr int kPvCols = 256;      // value columns a block
+constexpr int kPvThreads = 256;   // two warpgroups
+constexpr int kPvStages = 2;
+
+// V (columns, keys, batch) and the slab's scores (keys, B*h*slab rows)
+struct PvMaps {
+  CUtensorMap v, s;
 };
 
-template <typename E, int DVT>
-__global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args<E> a) {
-  using T = PvTiles<E, DVT>;
-  constexpr int kNV = DVT / 8;
-  extern __shared__ float4 smem4[];
-  float* s_s = reinterpret_cast<float*>(smem4);       // two stages
-  E* s_v = reinterpret_cast<E*>(s_s + 2 * T::kS);     // two stages
+struct PvTiles {
+  static constexpr int kHalf = kPvCols * kBKP * 4;   // bytes of hi (or lo)
+  static constexpr int kSplit = 2 * kHalf;           // a split V tile
+  static constexpr int kRawV = kBKP * kPvCols * 4;   // a stage's V box
+  static constexpr int kStage = kRawV + kBQ * kBKP * 4;
+  // the split buffers, the ring, its barriers and release counts
+  static constexpr size_t kSmem = 2 * kSplit + kPvStages * kStage +
+                                  kPvStages * (sizeof(uint64_t) + 4);
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
+template <typename E>
+__global__ void __launch_bounds__(kPvThreads, 1)
+    pv_kernel(Args<E> a, const __grid_constant__ PvMaps maps) {
+  static_assert(sizeof(E) == 4, "fp32 values");
+  using T = PvTiles;
+  using Frag = uint32_t[kBKP / 8][4];   // A fragments of a tile's k-steps
+  constexpr int kR = 64;   // accumulators a thread: 64 rows x 128 columns
+  extern __shared__ __align__(1024) char smem[];   // the swizzle's atom
+  char* ring = smem + 2 * T::kSplit;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kPvStages * T::kStage);
+  unsigned* released = reinterpret_cast<unsigned*>(full + kPvStages);
+
+  const int tid = threadIdx.x;
+  const int wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x;
   const int b = bh / a.heads;
   const int head = bh % a.heads;
   const int q0 = a.row0 + blockIdx.y * kBQ;
   const int vt = blockIdx.z % a.dv_tiles;
   const int split = blockIdx.z / a.dv_tiles;
-  const int c0 = vt * DVT;
+  const int c0 = vt * kPvCols;
+  const int ncols = min(kPvCols, a.dv - c0);
   int n_live = a.valid != nullptr ? a.valid[b] : a.valid_all;
   n_live = max(0, min(n_live, a.lk));
   const int k_begin = split * a.tiles_per_split * kBKP;
@@ -546,19 +631,28 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args<E> a) {
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBKP - 1) / kBKP : 0;
 
   // the slab is a multiple of 64 rows: this tile's rows lie in it
-  const float* s_base =
-      a.scores + ((long long)bh * a.slab + q0 - a.row0) * a.lds;
-  const E* v_base = a.v + b * a.v_sb + (long long)head * a.dv + c0;
-  auto load_tile = [&](int i) {
+  const int s_row = bh * a.slab + q0 - a.row0;
+  if (tid == 0) {
+    for (int i = 0; i < kPvStages; ++i) {
+      wg::bar_init(&full[i], 1);
+      released[i] = 0;
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+  // key tile i's boxes into stage i % kPvStages (keys past Lk and columns
+  // past h*dv read 0; dead keys' scores and V rows are read, never used)
+  auto load = [&](int i) {
+    char* st = ring + (i % kPvStages) * T::kStage;
+    uint64_t* bar = &full[i % kPvStages];
     const int k0 = k_begin + i * kBKP;
-    stage<kBQ, kBKP, T::kLdS, kThreads>(s_s + (i & 1) * T::kS, s_base + k0,
-                                        a.lds, a.lq - q0, k_end - k0);
-    stage<kBKP, DVT, T::kLdV, kThreads>(s_v + (i & 1) * T::kV,
-                                             v_base + k0 * a.v_sl, a.v_sl,
-                                             k_end - k0, a.dv - c0);
+    wg::fence_async_smem();
+    wg::bar_expect(bar, T::kStage);
+    tma_box(st, &maps.v, head * a.dv + c0, k0, b, bar);
+    tma_box_2d(st + T::kRawV, &maps.s, k0, s_row, bar);
   };
-  if (n_tiles > 0) load_tile(0);
-  cp_async_commit();
+  if (tid == 0)
+    for (int i = 0; i < kPvStages && i < n_tiles; ++i) load(i);
 
   // lse of rows g and g + 8 from the score splits' (max, sum)
   const int row0 = q0 + warp * 16 + g;
@@ -580,95 +674,226 @@ __global__ void __launch_bounds__(kThreads, 2) pv_kernel(Args<E> a) {
           sum += a.stat_l[sp * bhl + i0] * expf(a.stat_m[sp * bhl + i0] - mx);
         total = mx + logf(sum);
       }
-      if (vt == 0 && split == 0 && t == 0) a.lse[i0] = total;
+      if (vt == 0 && split == 0 && wgi == 0 && t == 0) a.lse[i0] = total;
     }
     live_r[r] = total > kEmptyLse;
     lse2[r] = total * kLog2e;
   }
 
-  float acc[kNV][4];
+  // Key tile j, from its stage: split V^T once (thread = value column, 4
+  // keys a 16-byte core-matrix row of hi and of lo; keys past the live ones
+  // 0) into buffer j & 1, then build P = exp(S - lse) over the live keys
+  // (unread scores are never selected), split into hi and lo, into the A
+  // fragments ph, pl. Straight-line code: it runs while the products of
+  // tile j - 1 are in flight, and ptxas serializes the products around any
+  // branch there. Past the last tile it writes stale words into buffers
+  // nothing reads.
+  char* const split_at =
+      smem + (tid >> 3) * wg::kGroupBytes + (tid & 7) * 16;
+  auto prepare = [&](int j, Frag& ph, Frag& pl) {
+    const char* st = ring + (j % kPvStages) * T::kStage;
+    const int k0 = k_begin + j * kBKP;
+    const int nk = k_end - k0;
+    const float* src = reinterpret_cast<const float*>(st) + tid;
+    char* dst = split_at + (j & 1) * T::kSplit;
 #pragma unroll
-  for (int n = 0; n < kNV; ++n)
+    for (int c = 0; c < kBKP / 4; ++c) {
+      uint32_t hi[4], lo[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const bool active = q0 + warp * 16 < a.lq;
-
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) load_tile(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (active) {
-      const int k0 = k_begin + i * kBKP;
-      float pv[kNV][4];
-#pragma unroll
-      for (int n = 0; n < kNV; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
-      const float* ts = s_s + (i & 1) * T::kS + (warp * 16 + g) * T::kLdS + t;
-      const E* tv = s_v + (i & 1) * T::kV + t * T::kLdV + g;
-#pragma unroll
-      for (int kb = 0; kb < kBKP / 8; ++kb) {
-      // P = exp(S - lse) over live keys; unread scores are never selected
-      const bool k_lo = k0 + kb * 8 + t < k_end;
-      const bool k_hi = k0 + kb * 8 + t + 4 < k_end;
-      const float* ps = ts + kb * 8;
-      const float p0 = (k_lo && live_r[0]) ? exp2f(fmaf(ps[0], kLog2e, -lse2[0])) : 0.f;
-      const float p1 = (k_lo && live_r[1]) ? exp2f(fmaf(ps[8 * T::kLdS], kLog2e, -lse2[1])) : 0.f;
-      const float p2 = (k_hi && live_r[0]) ? exp2f(fmaf(ps[4], kLog2e, -lse2[0])) : 0.f;
-      const float p3 = (k_hi && live_r[1]) ? exp2f(fmaf(ps[8 * T::kLdS + 4], kLog2e, -lse2[1])) : 0.f;
-      const FragA fp = frag_a(p0, p1, p2, p3);
-      const E* vb = tv + kb * 8 * T::kLdV;
-#pragma unroll
-      for (int n = 0; n < kNV; ++n)
-        mma3(pv[n], fp, frag_b(vb[n * 8], vb[4 * T::kLdV + n * 8]));
+      for (int e = 0; e < 4; ++e) {
+        const float x = src[(4 * c + e) * kPvCols];
+        hi[e] = tf32_hi(4 * c + e < nk ? x : 0.f);
+        lo[e] = tf32_lo(4 * c + e < nk ? x : 0.f, hi[e]);
       }
-
-      // fold once per tile in fp32: the mma's own accumulation rounds
-      // toward zero at every step (see tf32x3::mma3_apart)
-#pragma unroll
-      for (int n = 0; n < kNV; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += pv[n][e];
+      *reinterpret_cast<uint4*>(dst + c * wg::kChunkBytes) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(dst + T::kHalf + c * wg::kChunkBytes) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+    wg::fence_async_smem();   // before the products read them
+    // rows r = 16 warp + g and r + 8 (r % 8 = g): 16-byte chunk c of a row
+    // lies at chunk c ^ g; element e of a k-step: row + 8 (e & 1), key
+    // 8s + t + 4 (e >> 1)
+    const char* ts = st + T::kRawV + (warp * 16 + g) * (kBKP * 4) + t * 4;
+#pragma unroll
+    for (int s = 0; s < kBKP / 8; ++s) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = *reinterpret_cast<const float*>(
+            ts + (e & 1) * 8 * (kBKP * 4) + (((2 * s + (e >> 1)) ^ g) << 4));
+        const bool ok = k0 + 8 * s + t + 4 * (e >> 1) < k_end && live_r[e & 1];
+        const float x = exp2f(fmaf(sv, kLog2e, -lse2[e & 1]));
+        const float p = ok ? x : 0.f;
+        ph[s][e] = tf32_hi(p);
+        pl[s][e] = tf32_lo(p, ph[s][e]);
+      }
+    }
+  };
 
-  if (!active) return;
+  float acc[kR], pv[kR];
+#pragma unroll
+  for (int n = 0; n < kR; ++n) acc[n] = pv[n] = 0.f;
+  // this warpgroup's 128 columns of a split tile
+  const uint32_t b_wg = wg::smem_u32(smem) + wgi * (128 / 8) * wg::kGroupBytes;
+  // this warpgroup's threads wrote its half of a split tile: a barrier of
+  // its own (1 + wgi; 0 is __syncthreads)
+  auto wg_sync = [&]() {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+  };
+  // Every thread of the warpgroup is done with tile j's stage (its columns
+  // split, its scores taken) and its half of split tile j is whole. The
+  // second warpgroup to get here refills the stage with tile j +
+  // kPvStages, so neither waits for the other.
+  auto release = [&](int j) {
+    wg_sync();
+    if ((tid & 127) == 0) {
+      __threadfence_block();
+      if ((atomicAdd(&released[j % kPvStages], 1u) & 1u) != 0 &&
+          j + kPvStages < n_tiles)
+        load(j + kPvStages);
+    }
+  };
+  // Tile i: its products from ph, pl and split buffer i & 1; meanwhile tile
+  // i + 1 into nh, nl and buffer (i + 1) & 1; then fold.
+  auto step = [&](int i, Frag& ph, Frag& pl, Frag& nh, Frag& nl) {
+    if (i + 1 < n_tiles)
+      wg::bar_wait_bounded(&full[(i + 1) % kPvStages],
+                           ((i + 1) / kPvStages) & 1);
+    wg::keep_u<kBKP / 2>(&ph[0][0]);
+    wg::keep_u<kBKP / 2>(&pl[0][0]);
+    wg::fence();
+    const uint32_t b_t = b_wg + (i & 1) * T::kSplit;
+#pragma unroll
+    for (int s = 0; s < kBKP / 8; ++s) {
+      const uint64_t dh = wg::desc(b_t + s * wg::kStepBytes);
+      const uint64_t dl = wg::desc(b_t + T::kHalf + s * wg::kStepBytes);
+      wg::rs_tf32_n128(pv, pl[s], dh, s == 0 ? 0 : 1);
+      wg::rs_tf32_n128(pv, ph[s], dl, 1);
+      wg::rs_tf32_n128(pv, ph[s], dh, 1);
+    }
+    wg::commit();
+    prepare(i + 1, nh, nl);
+    wg::wait<0>();
+    wg::keep<kR>(pv);
+    // fold once a tile in fp32: the tensor core's own accumulation rounds
+    // toward zero at every step (see tf32x3::mma3_apart)
+#pragma unroll
+    for (int n = 0; n < kR; ++n) acc[n] += pv[n];
+    release(i + 1);
+  };
+
+  Frag p0_hi, p0_lo, p1_hi, p1_lo;
+  if (n_tiles > 0) wg::bar_wait_bounded(&full[0], 0);
+  prepare(0, p0_hi, p0_lo);
+  release(0);
+  for (int i = 0; i < n_tiles; i += 2) {
+    step(i, p0_hi, p0_lo, p1_hi, p1_lo);
+    if (i + 1 < n_tiles) step(i + 1, p1_hi, p1_lo, p0_hi, p0_lo);
+  }
+
   const long long o_stride = (long long)a.heads * a.dv;
+  const int wc = wgi * 128;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= a.lq) continue;
-    const long long o_row = split * a.out_split +
-                            ((long long)b * a.lq + row) * o_stride +
-                            (long long)head * a.dv + c0;
+    // a split's partial holds a slab's rows (at most Lq)
+    const long long o_row =
+        split * a.out_split +
+        (a.out_split != 0 ? (long long)b * min(a.slab, a.lq) + row - a.row0
+                          : (long long)b * a.lq + row) * o_stride +
+        (long long)head * a.dv + c0 + wc;
 #pragma unroll
-    for (int n = 0; n < kNV; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (c0 + col < a.dv)
-        store2(a.out, o_row + col, false, acc[n][2 * r],
-               acc[n][2 * r + 1]);
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t;   // ncols % 4 == 0: both or none
+      if (wc + col < ncols)
+        store2(a.out, o_row + col, false, acc[4 * j + 2 * r],
+               acc[4 * j + 2 * r + 1]);
     }
   }
 }
 
-// out = the sum of pass 2's key splits, in split order (n even)
+// out's rows [row0, row0 + rows) of each batch element = the sum of pass
+// 2's key splits of the slab (each B x prow rows of hd = h*dv floats), in
+// split order
 __global__ void __launch_bounds__(256)
 sum_splits_kernel(const float* __restrict__ part, void* __restrict__ out,
-                  long long n, int splits) {
+                  int splits, int batch, int rows, int prow, int lq, int row0,
+                  int hd) {
+  const long long per_b = (long long)rows * hd;
+  const long long n = batch * per_b;
+  const long long split_stride = (long long)batch * prow * hd;
   for (long long i = 2 * (blockIdx.x * 256LL + threadIdx.x); i < n;
        i += 2LL * gridDim.x * 256) {
+    const long long b = i / per_b, rest = i - b * per_b;   // hd even
+    const long long src = b * prow * hd + rest;
     float x = 0.f, y = 0.f;
     for (int s = 0; s < splits; ++s) {
-      x += part[s * n + i];
-      y += part[s * n + i + 1];
+      x += part[s * split_stride + src];
+      y += part[s * split_stride + src + 1];
     }
-    store2(out, i, false, x, y);
+    store2(out, (b * lq + row0) * hd + rest, false, x, y);
   }
 }
 
+
+// cuTensorMapEncodeTiled, looked up at run time through the runtime's
+// entry-point query (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// An fp32 tensor map of `rank` dims (sizes dims, byte strides of dims 1..,
+// boxes `box`), zeros outside the tensor
+bool make_map(CUtensorMap* map, const void* base, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encoder();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// pv_kernel's maps: v as (h*dv columns, Lk keys, B), the slab's scores as
+// (lds keys, B*h*slab rows)
+bool make_pv_maps(PvMaps* maps, const float* v, const float* scores,
+                  int batch, int heads, int lk, int dv, long long v_sb,
+                  long long v_sl, int slab, long long lds) {
+  const long long rows = lk > 0 ? lk : 1;
+  const cuuint64_t v_dims[3] = {(cuuint64_t)heads * dv, (cuuint64_t)rows,
+                                (cuuint64_t)batch};
+  const cuuint64_t v_strides[2] = {
+      (cuuint64_t)v_sl * 4, (cuuint64_t)(batch > 1 ? v_sb : rows * v_sl) * 4};
+  const cuuint32_t v_box[3] = {kPvCols, kBKP, 1};
+  const cuuint64_t s_dims[2] = {(cuuint64_t)lds,
+                                (cuuint64_t)batch * heads * slab};
+  const cuuint64_t s_strides[1] = {(cuuint64_t)lds * 4};
+  const cuuint32_t s_box[2] = {kBKP, kBQ};
+  return make_map(&maps->v, v, 3, v_dims, v_strides, v_box,
+                  CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         make_map(&maps->s, scores, 2, s_dims, s_strides, s_box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+}
 
 template <typename Kernel, typename E>
 int launch_k(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
@@ -699,16 +924,20 @@ int launch_d(const Args<E>& a, int batch, int splits, cudaStream_t stream) {
 
 // both passes over the `rows` query rows of the slab from a.row0
 template <typename E, int D>
-int launch_two_pass(const Args<E>& a, int batch, int rows, int splits,
-                    cudaStream_t stream) {
+int launch_two_pass(const Args<E>& a, const PvMaps& maps, int batch,
+                    int rows, int splits, cudaStream_t stream) {
   const int tiles = (rows + kBQ - 1) / kBQ;
   const dim3 s_grid(batch * a.heads, tiles, a.score_splits);
   int err = launch_k(score_kernel<E, D>, s_grid, ScoreTiles<E, D>::kSmem,
                      stream, a);
   if (err != 0) return err;
   const dim3 p_grid(batch * a.heads, tiles, a.dv_tiles * splits);
-  return launch_k(pv_kernel<E, 128>, p_grid, PvTiles<E, 128>::kSmem, stream,
-                  a);
+  cudaError_t e = cudaFuncSetAttribute(
+      pv_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)PvTiles::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  pv_kernel<E><<<p_grid, kPvThreads, PvTiles::kSmem, stream>>>(a, maps);
+  return (int)cudaGetLastError();
 }
 
 template <typename E>
@@ -737,31 +966,40 @@ int fwd(const void* q, const void* k, const void* v, const void* valid,
     const long long lds = (lk + kBKP - 1) / kBKP * kBKP;
     float* scores = (float*)part;
     float* part_out = scores + (long long)batch * heads * slab * lds;
-    float* stat_m = part_out + (splits > 1 ? splits * n_out : 0);
+    // the output's splits: each a slab's rows (B x prow x h*dv floats)
+    const int prow = lq < slab ? lq : slab;
+    const long long n_part = (long long)batch * prow * heads * dv;
+    float* stat_m = part_out + (splits > 1 ? splits * n_part : 0);
     float* stat_l = stat_m + score_splits * n_lse;
     const int score_tiles = (lk + kBKS - 1) / kBKS;
     const int pv_tiles = (lk + kBKP - 1) / kBKP;
     Args<E> a{(const E*)q, (const E*)k, (const E*)v,
               (const int*)valid, splits > 1 ? (void*)part_out : out,
-              (float*)lse, splits > 1 ? n_out : 0, 0,
-              heads, lq, lk, d, dv, valid_all, (dv + 127) / 128,
+              (float*)lse, splits > 1 ? n_part : 0, 0,
+              heads, lq, lk, d, dv, valid_all, (dv + kPvCols - 1) / kPvCols,
               (pv_tiles + splits - 1) / splits,
               q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale,
               0, slab, scores, lds, stat_m, stat_l, score_splits,
               (score_tiles + score_splits - 1) / score_splits};
+    PvMaps maps;
+    if (!make_pv_maps(&maps, (const float*)v, scores, batch, heads, lk, dv,
+                      v_sb, v_sl, slab, lds))
+      return (int)cudaErrorInvalidValue;
     int err = 0;
     for (int r0 = 0; r0 < lq && err == 0; r0 += slab) {
       a.row0 = r0;
       const int rows = lq - r0 < slab ? lq - r0 : slab;
-      err = d <= 32 ? launch_two_pass<E, 32>(a, batch, rows, splits, s)
-          : d <= 128 ? launch_two_pass<E, 128>(a, batch, rows, splits, s)
-                     : launch_two_pass<E, 256>(a, batch, rows, splits, s);
+      err = d <= 32 ? launch_two_pass<E, 32>(a, maps, batch, rows, splits, s)
+          : d <= 128 ? launch_two_pass<E, 128>(a, maps, batch, rows, splits, s)
+                     : launch_two_pass<E, 256>(a, maps, batch, rows, splits, s);
+      if (err != 0 || splits == 1) continue;
+      const long long n = (long long)batch * rows * heads * dv;
+      const long long blocks = (n + 511) / 512 < 2048 ? (n + 511) / 512 : 2048;
+      sum_splits_kernel<<<(int)blocks, 256, 0, s>>>(
+          part_out, out, splits, batch, rows, prow, lq, r0, heads * dv);
+      err = (int)cudaGetLastError();
     }
-    if (err != 0 || splits == 1) return err;
-    const long long blocks = (n_out + 511) / 512 < 2048 ? (n_out + 511) / 512 : 2048;
-    sum_splits_kernel<<<(int)blocks, 256, 0, s>>>(part_out, out, n_out,
-                                                  splits);
-    return (int)cudaGetLastError();
+    return err;
   }
   const int bk = (d <= 32 && dv <= 32) ? 64 : 32;   // launch_d's
   const int key_tiles = (lk + bk - 1) / bk;
@@ -804,8 +1042,8 @@ int fwd(const void* q, const void* k, const void* v, const void* valid,
 // `part`) and the row max and sum of each of `score_splits` (>= 1) key
 // splits (score_splits x B*h*Lq of each, at the end of `part`); pv_kernel
 // computes out over `splits` key splits, with splits > 1 into partials
-// between the two (splits x B*Lq*h*dv) that sum_splits_kernel adds in
-// order once every slab is done.
+// between the two (splits x B*min(slab, Lq)*h*dv) that sum_splits_kernel
+// adds in order after each slab.
 // The caller allocates `part` (ops/kernels/flash_attn.py fwd_plan). Launches
 // on `stream` and returns the first non-zero cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue for a shape it does not take;

@@ -2,10 +2,11 @@
 
 Port of aot_tpu/ops/pallas/flash_attn_vjp.py:338 flash_attention, forward
 (`_flash_fwd_raw` :211, kernel body `_fwd_kernel` :51). The kernels are
-csrc/flash_attn_fwd.cu for fp32 q, k, v (3xTF32 mma.sync; its launch plan
-is `fwd_plan`) and csrc/flash_attn_fwd_bf16.cu for bf16 ones (wgmma; its
-launch plan is csrc/flash_attn_fwd_bf16_plan.h's, read through
-`bf16_launch_plan`); each source's header says what bounds it on Hopper.
+csrc/flash_attn_fwd.cu for fp32 q, k, v (3xTF32: mma.sync, and wgmma for
+the P V pass of dv > 128; its launch plan is `fwd_plan`) and
+csrc/flash_attn_fwd_bf16.cu for bf16 ones (wgmma; its launch plan is
+csrc/flash_attn_fwd_bf16_plan.h's, read through `bf16_launch_plan`); each
+source's header says what bounds it on Hopper.
 The global attention over a long LT memory reaches them through
 ops/attention.py `use_flash`.
 
@@ -14,7 +15,9 @@ ops/attention.py `use_flash`.
                          is no fallback
   flash_attention_cuda   the kernel wrapper (counter
                          launch.flash_attn_fwd[_bf16]: one per call, which runs
-                         the kernel's passes and the merge of key splits)
+                         the kernel's passes and the merge of key splits;
+                         flash.fwd.pv and flash.fwd.pv.keys: the fp32 calls
+                         that take the two passes, and their live keys)
   flash_attention_plain  the same function in plain PyTorch: a masked
                          softmax over the live keys
   flash_attention_train  the differentiable form (the `FlashAttention`
@@ -50,13 +53,14 @@ from aot_tpu_torch.utils import tracing
 NEG_INF = -1e30
 MAX_D = 256       # q/k channels per head (csrc/flash_attn_fwd.cu kMaxD)
 _TILE_Q = 64      # queries a block (csrc/flash_attn_fwd.cu kBQ)
+_PV_COLS = 256    # value columns a P V block (csrc/flash_attn_fwd.cu kPvCols)
 # Floats of scores (forward) or of P and of dS each (backward) that the
 # two-pass forms keep at once, 256 MB: they run over slabs of query rows
 # that fit it. A memory bound, not a route: every width above one value
 # tile takes the two passes. A 465x465 DeAOTL read (B*h = 1, Lq = 900,
 # Lk <= 19,800) fits one slab; a 1080p read (Lq = 7,232, Lk = 14,464)
-# takes two, of 4,608 and 2,624 rows, at the 900-row read's time a
-# (query, key) pair (chip_smoke.py phase 3).
+# takes two in the forward, of 4,224 and 3,008 rows (fwd_plan fits its
+# slabs to whole waves; chip_smoke.py phase 3).
 SLAB_FLOATS = 1 << 26
 
 ValidLen = Union[None, int, torch.Tensor]
@@ -160,24 +164,67 @@ def fwd_plan(b: int, lq: int, lk: int, num_heads: int, dv: int,
     tile takes all of dv, two a multiprocessor, the key loop split across
     blocks where the grid is under those two waves (score_splits and slab
     0; scratch for the splits' out and lse). Above, two passes over slabs
-    of query rows (slab_rows): the scores once and then P V over
-    128-column value tiles, each pass's key loop split to fill two blocks a
-    multiprocessor (score_splits, splits); scratch for a slab's scores, the
-    row statistics and the output's splits."""
+    of query rows (_two_pass_slab): the scores once, their key loop split
+    to fill two blocks a multiprocessor (score_splits), and then P V over
+    256-column value tiles, one block a multiprocessor, its key loop split
+    to fill one wave (splits); scratch for a slab's scores, the row
+    statistics and the output's splits (each a slab's rows)."""
     h = num_heads
     if dv > 128:
-        slab = slab_rows(b * h, lq, lk)
-        tiles = -(-min(slab, lq) // _TILE_Q)
+        tiles, splits = _two_pass_slab(b * h, lq, lk, dv, sms)
+        slab = tiles * _TILE_Q
         score_splits = _splits(b * h * tiles, 2 * sms, -(-lk // 64))
-        splits = _splits(b * h * tiles * -(-dv // 128), 2 * sms,
-                         -(-lk // 32))
-        scratch = (b * h * slab * (-(-lk // 32) * 32)
-                   + 2 * score_splits * b * h * lq
-                   + (splits * b * lq * h * dv if splits > 1 else 0))
-        return splits, score_splits, slab, scratch
+        return splits, score_splits, slab, _two_pass_scratch(
+            b * h, lq, lk, dv, slab, splits, score_splits)
     splits = _splits(b * h * -(-lq // _TILE_Q), 2 * sms, -(-lk // 64))
     return splits, 0, 0, (splits * (b * lq * h * dv + b * h * lq)
                           if splits > 1 else 0)
+
+
+# The cost of a slab beyond its P V tiles (three more launches, a pipeline
+# to fill and drain), in the time of one 32-key P V tile of a block
+_SLAB_COST = 20
+
+
+def _two_pass_scratch(bh: int, lq: int, lk: int, dv: int, slab: int,
+                      splits: int, score_splits: int) -> int:
+    """Floats of the two passes' scratch: a slab's scores, the score
+    splits' row max and sum, and the P V splits' partials of a slab."""
+    return (bh * slab * (-(-lk // 32) * 32) + 2 * score_splits * bh * lq
+            + (splits * bh * min(slab, lq) * dv if splits > 1 else 0))
+
+
+@functools.lru_cache(maxsize=256)
+def _two_pass_slab(bh: int, lq: int, lk: int, dv: int,
+                   sms: int) -> Tuple[int, int]:
+    """(query tiles a slab, P V key splits) of the two passes: of the slabs
+    of up to slab_rows' rows, the one whose P V grids (query tiles x value
+    tiles x splits, one block a multiprocessor) fill their waves best, by
+    the P V tiles a block runs in every slab and wave plus _SLAB_COST a
+    slab, and whose scratch is no more than the largest slab's; the larger
+    slab where two tie. A DeAOTL read at 480p (Lq = 1,674 over 107,136
+    keys) takes slabs of 3 tiles and 11 splits, 132 blocks, not 9 tiles
+    and 3 splits, 108. Made once a shape."""
+    key_tiles = -(-lk // 32)
+    all_tiles = -(-lq // _TILE_Q)
+
+    def plan(tiles: int) -> Tuple[int, int, int]:   # cost, splits, scratch
+        pairs = bh * tiles * -(-dv // _PV_COLS)
+        splits = _splits(pairs, sms, key_tiles)
+        cost = -(-all_tiles // tiles) * (
+            -(-pairs * splits // sms) * -(-key_tiles // splits) + _SLAB_COST)
+        return cost, splits, _two_pass_scratch(
+            bh, lq, lk, dv, tiles * _TILE_Q, splits,
+            _splits(bh * tiles, 2 * sms, -(-lk // 64)))
+
+    most = slab_rows(bh, lq, lk) // _TILE_Q
+    cap = plan(most)[2]
+    _, neg_tiles, splits = min(
+        (cost, -tiles, splits)
+        for tiles, (cost, splits, scratch) in (
+            (t, plan(t)) for t in range(1, most + 1))
+        if scratch <= cap)
+    return -neg_tiles, splits
 
 
 # The bf16 kernel's plan: its inputs, in the order of
@@ -303,7 +350,18 @@ def flash_attention_cuda(
         raise RuntimeError(
             f"flash_attn_fwd failed to launch: CUDA error {err}")
     tracing.count("launch.flash_attn_fwd")
+    count_pv_pass(dv, valid_all)
     return out, lse
+
+
+def count_pv_pass(dv: int, keys: int) -> None:
+    """Count an fp32 kernel call that takes the two passes (dv > 128: the
+    scores, then P V on wgmma) as `flash.fwd.pv`, and `keys` under
+    `flash.fwd.pv.keys` (the live length where it is a host int, else every
+    key handed over, as ops/attention.py counts `attn.global.flash.keys`)."""
+    if dv > 128:
+        tracing.count("flash.fwd.pv")
+        tracing.count("flash.fwd.pv.keys", keys)
 
 
 def _launch_bf16(q, k, v, valid_ptr, valid_all: int, b: int, lq: int,

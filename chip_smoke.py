@@ -570,8 +570,10 @@ def fwd_plan(fa, b, lq, lk, h, dv, device):
 
 
 def check_flash_numerics(fa, device, rng):
-    """Phase 2's flash forward cases: kernel vs plain, out and lse. Returns
-    the worst error."""
+    """Phase 2's flash forward cases: kernel vs plain, out and lse, and the
+    two-pass calls' counter. Returns the worst error."""
+    from aot_tpu_torch.utils import tracing
+
     flash_cases = [  # name, B, Lq, Lk, heads, d, dv, valid_len, ring, q_scale
         ("deaotl_lk9000", 1, 900, 9000, 1, 128, 1024, 9000, 0, 1.0),
         # SwinB_DeAOTL's LT reads at 464x464: 841 queries over 10 and 21
@@ -597,8 +599,17 @@ def check_flash_numerics(fa, device, rng):
         # the last ones past the live keys (empty partials in the merge)
         ("split_keys_h1", 1, 900, 4000, 1, 32, 32, [2500], 0, 1.0),
         ("d64_dv64", 2, 300, 1000, 2, 64, 64, [1000, 700], 0, 1.0),
+        # the P V pass's edges: a partial 256-column value tile at two
+        # heads (each warpgroup's 128 columns, the second partly past dv);
+        # B = 2 over several slabs, each with its own key splits' partials
+        ("dv160_h2_partial_value_tile", 2, 130, 3000, 2, 32, 160,
+         [3000, 1234], 0, 1.0),
+        ("deaotl_b2_slabs_splits", 2, 1674, 20000, 1, 128, 1024,
+         [20000, 13000], 0, 1.0),
     ]
     worst_flash = 0.0
+    before = tracing.counters()
+    pv_reads = pv_keys = 0
     for name, b, lq, lk, h, d, dv, valid, ring, q_scale in flash_cases:
         q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid, device,
                                    ring, q_scale)
@@ -616,6 +627,12 @@ def check_flash_numerics(fa, device, rng):
             raise AssertionError(f"{name}: {plan} key split(s)")
         if name.endswith("_two_slabs") and -(-lq // plan[2]) != 2:
             raise AssertionError(f"{name}: slab {plan[2]} of {lq} rows")
+        if name.endswith("_slabs_splits") and not (
+                -(-lq // plan[2]) > 1 and plan[0] > 1):
+            raise AssertionError(f"{name}: plan {plan}")
+        if dv > 128:
+            pv_reads += 1
+            pv_keys += valid if isinstance(valid, int) else lk
         shown = "(B,) partial" if isinstance(valid, list) and b > 2 else valid
         print(f"phase 2: flash_attn_fwd {name} B={b} Lq={lq} Lk={lk} h={h} "
               f"d={d} dv={dv} valid={shown} q_scale={q_scale}, key splits "
@@ -624,6 +641,14 @@ def check_flash_numerics(fa, device, rng):
         if not err <= KERNEL_TOL:
             raise AssertionError(f"{name}: kernel vs plain {err} > {KERNEL_TOL}")
         worst_flash = max(worst_flash, err)
+    after = tracing.counters()
+    got = tuple(after.get(n, 0) - before.get(n, 0)
+                for n in ("flash.fwd.pv", "flash.fwd.pv.keys"))
+    print(f"phase 2: flash.fwd.pv counted {got[0]} reads over {got[1]} keys "
+          f"(want {pv_reads}, {pv_keys})", flush=True)
+    if got != (pv_reads, pv_keys):
+        raise AssertionError(f"flash.fwd.pv counted {got}, want "
+                             f"{(pv_reads, pv_keys)}")
     return worst_flash
 
 
@@ -851,7 +876,10 @@ def time_kernels(lwa, fa, device, card: str):
             ("DeAOTL LT", 1, 900, 9000, 1, 128, 1024),
             ("DeAOTL LT", 1, 900, 19800, 1, 128, 1024),
             ("SwinB_DeAOTL LT", 1, 841, 17661, 1, 128, 1024),
-            ("DeAOTL 1080p LT", 1, 7232, 14464, 1, 128, 1024)):
+            ("DeAOTL 1080p LT", 1, 7232, 14464, 1, 128, 1024),
+            # r50_deaotl.longstream480's LT read: 64 frames of 1,674 keys
+            ("R50_DeAOTL 480p LT, 64 frames", 1, 1674, 107136, 1, 128,
+             1024)):
         # hw_check (row #4 of PERF.md's table): live lengths 7,200 / 4,320
         vl = ([7200, 4320] if label == "flash_mem hw_check"
               else None if b > 1 else lk)
@@ -869,14 +897,26 @@ def time_kernels(lwa, fa, device, card: str):
         b_ms, b_by = (flash_fwd_bound(b, lq, lk, h, d, dv) if vl is None
                       or not isinstance(vl, torch.Tensor) else
                       flash_fwd_bound_live(lq, vl.tolist(), h, d, dv))
+        err = ""
+        if lk > 100000:
+            # the kernel against its plain version under phase 2's gate
+            got, got_lse = fa.flash_attention_cuda(q, k, v, vl, h, d)
+            want, want_lse = fa.flash_attention_plain(q, k, v, vl, h, d)
+            e = max((got - want).abs().max().item(),
+                    (got_lse - want_lse).abs().max().item())
+            err = f"; max_abs_err (out, lse) vs plain {e:.3e}"
+            del got, got_lse, want, want_lse
+            if not e <= KERNEL_TOL:
+                raise AssertionError(f"phase 3 {label}: kernel vs plain {e} "
+                                     f"> {KERNEL_TOL}")
         print(f"phase 3: flash_attn_fwd {label} shape B={b} Lq={lq} Lk={lk} "
               f"h={h} d={d} dv={dv} (key splits (output, scores) and query "
               f"slab {fwd_plan(fa, b, lq, lk, h, dv, device)}): kernel "
               f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
               f"F.scaled_dot_product_attention with a boolean live-key mask "
               f"({sdpa_backend(qs, ks, vs, mask)}) {t['library']:.4f} ms (vs "
-              f"plain {lib_err:.1e}); bound {b_ms:.4f} ms ({b_by}) ({card})",
-              flush=True)
+              f"plain {lib_err:.1e}); bound {b_ms:.4f} ms ({b_by}){err} "
+              f"({card})", flush=True)
         if lk == 19800:
             times["flash_attn_fwd"] = (t["kernel"], t["plain"], t["library"],
                                        (b_ms, b_by))

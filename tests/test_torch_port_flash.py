@@ -310,53 +310,123 @@ def test_three_tf32_products_hold_the_fp32_gate(q_scale, one_pass_holds):
     assert (one <= 1e-4) is one_pass_holds
 
 
-def test_long_sums_are_folded_per_tile():
-    """Why the backward folds dQ once per key tile: dQ = dS K sums over
-    every live key (here 19,800, DeAOTL's longest memory). Straight into
-    one mma accumulator that is ~7,400 roundings toward zero, all one way:
-    2.0e-4 of the largest entry, twice the 1e-4 gate of chip_smoke.py
-    phase 8. Each 32-key tile summed in its own accumulator and added in
-    fp32 (csrc/flash_attn_bwd.cu): 9.2e-7."""
+_RTZ = np.int64(~((1 << 29) - 1))   # fp64 bits below fp32's 24-bit mantissa
+
+
+def _tf32_np(x: np.ndarray) -> np.ndarray:
+    """fp32 rounded to TF32 as csrc/tf32x3.cuh rounds (see _tf32)."""
+    return ((x.view(np.int32) + 0x1000) & -0x2000).view(np.float32)
+
+
+def _mma_chain_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a @ b (..., r, K) x (..., K, c) into one tensor-core accumulator, as
+    _mma issues it: each 8-wide slice of the summation index as three
+    products of TF32 splits, lo hi, hi lo, hi hi, each added exactly and
+    rounded toward zero to fp32 (fp64 bits truncated to fp32's mantissa;
+    the values stay in fp32's normal range). Returns fp64 holding fp32
+    values."""
+    a_hi, b_hi = _tf32_np(a), _tf32_np(b)
+    a_lo, b_lo = _tf32_np(a - a_hi), _tf32_np(b - b_hi)
+    terms = [(x.astype(np.float64), y.astype(np.float64))
+             for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))]
+    acc = np.zeros(a.shape[:-1] + (b.shape[-1],))
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            acc = ((acc + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :])
+                   .view(np.int64) & _RTZ).view(np.float64)
+    return acc
+
+
+@pytest.mark.parametrize("lk,weights,cols", [
+    (19800, "signed", 128),   # the backward's dQ = dS K (csrc/flash_attn_bwd.cu)
+    (107136, "softmax", 32),  # the forward's P V pass (pv_kernel)
+])
+def test_long_sums_are_folded_per_tile(lk, weights, cols):
+    """Why the long sums over keys are folded once a 32-key tile. The
+    backward's dQ = dS K over 19,800 keys (DeAOTL's longest memory, signed
+    weights): straight into one mma accumulator that is ~7,400 roundings
+    toward zero, all one way: 2.0e-4 of the largest entry, twice the 1e-4
+    gate of chip_smoke.py phase 8; each 32-key tile summed in its own
+    accumulator and added in fp32 (csrc/flash_attn_bwd.cu): 9.2e-7. The
+    forward's P V pass over 107,136 keys (r50_deaotl.longstream480's LT
+    read; softmax weights, one warp's 16 rows): each 8-key k-step is three
+    wgmma m64n128k8 products, lo hi + hi lo + hi hi, into a tile's own
+    accumulator, folded in fp32 once a 32-key tile (csrc/flash_attn_fwd.cu
+    pv_kernel): 1.7e-6, where one accumulator over every key reads
+    1.0e-3."""
     rng = np.random.RandomState(3)
-    lk, tile = 19800, 32
-    ds = torch.tensor(rng.randn(16, lk) / lk, dtype=torch.float32)
-    k = torch.tensor(rng.randn(lk, 128), dtype=torch.float32)
-    want = ds.double() @ k.double()
-    straight = _mma(ds, k)[0]
-    folded = torch.zeros(16, 128)
-    for k0 in range(0, lk, tile):
-        folded = folded + _mma(ds[:, k0:k0 + tile], k[k0:k0 + tile])[0]
-    scale = want.abs().max().item()
-    err_straight = (straight.double() - want).abs().max().item() / scale
-    err_folded = (folded.double() - want).abs().max().item() / scale
+    if weights == "signed":
+        a = (rng.randn(16, lk) / lk).astype(np.float32)
+    else:
+        s = rng.randn(16, lk)
+        p = np.exp(s - s.max(1, keepdims=True))
+        a = (p / p.sum(1, keepdims=True)).astype(np.float32)
+    b = rng.randn(lk, cols).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    straight = _mma_chain_np(a, b)
+    tile = 32
+    pad = -lk % tile   # zero keys add exactly nothing
+    a_t = np.pad(a, ((0, 0), (0, pad))).reshape(16, -1, tile).transpose(1, 0, 2)
+    b_t = np.pad(b, ((0, pad), (0, 0))).reshape(-1, tile, cols)
+    # every tile's accumulator at once, then the fold in fp32, in key order
+    parts = _mma_chain_np(a_t, b_t).astype(np.float32)
+    folded = np.add.accumulate(parts, axis=0, dtype=np.float32)[-1]
+    scale = np.abs(want).max()
+    err_straight = np.abs(straight - want).max() / scale
+    err_folded = np.abs(folded - want).max() / scale
     assert err_folded <= 1e-5
     assert err_straight > 1e-4
 
 
-@pytest.mark.parametrize("b,lq,lk,h,dv,splits,score_splits,slab", [
-    (1, 900, 19800, 1, 1024, 2, 17, 960),  # one DeAOTL video: two passes
-    (2, 900, 14400, 1, 1024, 1, 8, 960),   # 240 output blocks
-    (4, 900, 19800, 1, 1024, 1, 5, 832),   # 285 MB of scores: two slabs
-    (1, 7232, 14464, 1, 1024, 1, 3, 4608),  # DAVIS 1080p: two slabs
-    (1, 900, 4000, 1, 32, 17, 0, 0),       # 15 blocks
-    (1, 100, 64, 1, 32, 1, 0, 0),          # one key tile
-    (16, 900, 900, 8, 32, 1, 0, 0),        # AOTT training: 1,920 blocks
+# (b, lq, lk, h, dv): (splits, score_splits, slab), and the scratch floats
+# the forward's plan gave before the P V pass went to wgmma (256-column
+# value tiles, one block a multiprocessor, slabs fitted to whole waves),
+# which the plan must not pass
+@pytest.mark.parametrize("b,lq,lk,h,dv,splits,score_splits,slab,before", [
+    (1, 900, 19800, 1, 1024, 2, 17, 960, 20889480),  # one DeAOTL video
+    (2, 900, 14400, 1, 1024, 1, 8, 960, 27676800),   # 120 P V blocks
+    # 285 MB of scores: two slabs of 8 tiles, a wave of 128 blocks each
+    (4, 900, 19800, 1, 1024, 1, 8, 512, 65957024),
+    (1, 7232, 14464, 1, 1024, 1, 4, 4224, 66693504),  # DAVIS 1080p: two slabs
+    # r50_deaotl.longstream480's LT read: 9 slabs of 3 tiles, 132 blocks
+    (1, 1674, 107136, 1, 1024, 11, 88, 192, 66949956),
+    (1, 900, 4000, 1, 32, 17, 0, 0, 504900),       # one pass: 15 blocks
+    (1, 100, 64, 1, 32, 1, 0, 0, 0),               # one key tile
+    (16, 900, 900, 8, 32, 1, 0, 0, 0),             # AOTT training
 ])
-def test_forward_plan(b, lq, lk, h, dv, splits, score_splits, slab):
+def test_forward_plan(b, lq, lk, h, dv, splits, score_splits, slab, before):
     """The forward's key splits, query slabs and scratch on a card of 132
     multiprocessors: the splits bring a small grid toward the blocks the
     card holds at once, never past them; two passes keep a slab's scores,
-    at most 256 MB."""
+    at most 256 MB, and no more scratch than before."""
     got = fa.fwd_plan(b, lq, lk, h, dv, 132)
     assert got[:3] == (splits, score_splits, slab)
+    assert got[3] <= before
     lds = -(-lk // 32) * 32
     if score_splits:
         assert b * h * slab * lds <= fa.SLAB_FLOATS
         assert got[3] == (b * h * slab * lds + 2 * score_splits * b * h * lq
-                          + (splits * b * lq * h * dv if splits > 1 else 0))
+                          + (splits * b * h * min(slab, lq) * dv
+                             if splits > 1 else 0))
+        blocks = b * h * (slab // 64) * -(-dv // 256) * splits
+        assert splits == 1 or blocks <= 132
     else:
         assert got[3] == (splits * (b * lq * h * dv + b * h * lq)
                           if splits > 1 else 0)
+
+
+def test_pv_pass_counter():
+    """The fp32 calls that take the two passes count under flash.fwd.pv
+    with their keys; a one-pass width counts nothing."""
+    tracing.reset_counters()
+    try:
+        fa.count_pv_pass(1024, 107136)
+        fa.count_pv_pass(160, 900)
+        fa.count_pv_pass(128, 5000)
+        assert tracing.counters() == {"flash.fwd.pv": 2,
+                                      "flash.fwd.pv.keys": 108036}
+    finally:
+        tracing.reset_counters()
 
 
 @pytest.mark.parametrize("d,dv,ok", [
