@@ -1,10 +1,12 @@
 """The comparison that decides `correct`.
 
 Once the window has closed and the program's state is freed, the plain
-reference (vosbench/reference) replays a sample of the videos that the
-program served. The sample is drawn from the seed before the window, from
-the stream's first pass (one play of every video of the cell's list, which
-the window serves before any repeat), the longest always in it, so that
+reference (the cell's own: `reference/` under its root) replays a sample of
+the videos that the program served. The sample is drawn from the seed
+before the window, from the stream's first pass (one play of every video of
+the cell's list, which the window serves before any repeat; where a cell's
+window serves less than a pass, from the videos that start within the
+pass's first `within_frames` frames), the longest always in it, so that
 only those videos keep their masks while the window runs; a cell whose
 stream is one video replays that video from its first frame, set-up
 included, and a video the window did not reach has nothing to replay. The
@@ -27,19 +29,27 @@ compared.
 
 from __future__ import annotations
 
-from typing import Dict, List
+import itertools
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from vosbench.reference.model import Model
-from vosbench.reference.stream import Stream
+from vosbench import reference
 
 
-def sample_videos(first_pass, seed: int, count: int) -> List[int]:
+def sample_videos(first_pass, seed: int, count: int,
+                  within_frames: Optional[int] = None) -> List[int]:
     """Stream indices of the checked videos: the longest video of the
     first pass (the first of equals) and count - 1 others of the pass drawn
-    from the seed."""
+    from the seed. With `within_frames`, only the pass's videos whose first
+    frame lies within the stream's first `within_frames` frames take part:
+    where the window serves less than a pass, the checked videos are then
+    all served."""
+    if within_frames is not None:
+        starts = itertools.accumulate([0] + [v.frames for v in first_pass])
+        first_pass = [v for v, s in zip(first_pass, starts)
+                      if s < within_frames]
     if not first_pass:
         return []
     longest = max(first_pass, key=lambda v: (v.frames, -v.index)).index
@@ -50,7 +60,7 @@ def sample_videos(first_pass, seed: int, count: int) -> List[int]:
     return [longest] + sorted(rest[i] for i in pick)
 
 
-def frame_numbers(ref_logits, served_mask, kept_logits, model: Model,
+def frame_numbers(ref_logits, served_mask, kept_logits, model,
                   obj_num: int, size):
     """(mask_gap, logit_err or None) of one frame."""
     live = ref_logits[..., :obj_num + 1]
@@ -70,7 +80,8 @@ def frame_numbers(ref_logits, served_mask, kept_logits, model: Model,
 def check(cell, runner, weights, traffic, device) -> Dict:
     wl = cell.workload
     limits = wl["limits"]
-    model = Model(weights, cell.config)
+    ref = reference.load(cell.root)
+    model = ref.model.Model(weights, cell.config)
     engine = wl.get("engine", {})
     policy = engine.get("TEST_LONG_TERM_MEM_POLICY", "grow")
     videos = [v for v in runner.checked if v in runner.videos]
@@ -82,8 +93,9 @@ def check(cell, runner, weights, traffic, device) -> Dict:
     for v in videos:
         frames = sorted(by_video[v], key=lambda f: f.t)
         video = runner.videos[v]
-        stream = Stream(model, cell.config["TEST_LONG_TERM_MEM_GAP"], policy,
-                        engine.get("TEST_LONG_TERM_MEM_CAP", 0))
+        stream = ref.stream.Stream(
+            model, cell.config["TEST_LONG_TERM_MEM_GAP"], policy,
+            engine.get("TEST_LONG_TERM_MEM_CAP", 0))
         for f in frames:
             img = traffic.image(video, f.t)[None].to(device)
             if f.kind == "ref":

@@ -28,8 +28,7 @@ import torch  # noqa: E402
 CHECKOUT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(CHECKOUT))
 
-from vosbench.reference.model import Model  # noqa: E402
-from vosbench.reference.stream import Stream  # noqa: E402
+from vosbench import reference  # noqa: E402
 
 
 def round_tf32(t: torch.Tensor) -> torch.Tensor:
@@ -58,16 +57,17 @@ class ReferenceServer:
     def __init__(self, cell, weights, device, emulate: bool = False):
         params = ({k: round_tf32(v) if v.ndim >= 2 else v
                    for k, v in weights.items()} if emulate else weights)
-        self.model = Model(params, cell.config)
+        self.ref = reference.load(cell.root)
+        self.model = self.ref.model.Model(params, cell.config)
         self.cell = cell
         self.precision = contextlib.nullcontext if emulate else tf32
 
     def start(self, img, mask, objects: int) -> None:
         engine = self.cell.workload.get("engine", {})
-        self.stream = Stream(self.model,
-                             self.cell.config["TEST_LONG_TERM_MEM_GAP"],
-                             engine.get("TEST_LONG_TERM_MEM_POLICY", "grow"),
-                             engine.get("TEST_LONG_TERM_MEM_CAP", 0))
+        self.stream = self.ref.stream.Stream(
+            self.model, self.cell.config["TEST_LONG_TERM_MEM_GAP"],
+            engine.get("TEST_LONG_TERM_MEM_POLICY", "grow"),
+            engine.get("TEST_LONG_TERM_MEM_CAP", 0))
         with torch.inference_mode(), self.precision():
             self.stream.reference_frame(img, mask, objects)
 

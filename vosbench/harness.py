@@ -10,12 +10,16 @@ traffic; the harness then reads, under this folder:
                             engine's test-time settings, the traced
                             sub-window's length and the check's limits
   ops/*.json                one file per kernel family: the operation it
-                            serves, the work function (work.py) and the
-                            kernel-name patterns; an operation's patterns
-                            are the union of its files
+                            serves, the work function (a function of
+                            work.py, or "<file>.py:<function>" of a file
+                            in ops/) and the kernel-name patterns; an
+                            operation's patterns are the union of its files
   metrics/<metric>.py       one reader per per-layer metric: read(run)
                             returns the value, or None where the run holds
                             nothing to read
+  reference/encoders/<MODEL_ENCODER>.py
+                            the configuration's encoder in the plain
+                            reference (reference.load)
 
 The program under test is driven only through
 `aot_tpu_torch.engine.build_infer_engine(...)`: `add_reference_frame` at a
@@ -28,18 +32,20 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
 import math
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vosbench import check, work
+from vosbench.stages import Stages
 from vosbench.trace import Trace
 from vosbench.traffic import Traffic, Video
 from vosbench.weights import make_weights
@@ -104,13 +110,30 @@ def load_cell(bench_path: Path, name: str, root: Path = ROOT) -> Cell:
                 [m for m in bench["per_layer"] if mine(m)], ops, Path(root))
 
 
-def load_reader(root: Path, metric: str) -> Callable:
-    path = root / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "vosbench_metric_" + metric.replace(".", "_"), path)
+def load_file(path: Path, prefix: str):
+    """The module in the file at `path`, loaded by path."""
+    name = prefix + path.stem.replace(".", "_").replace("-", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(root: Path, metric: str) -> Callable:
+    return load_file(root / "metrics" / f"{metric}.py",
+                     "vosbench_metric_").read
+
+
+def load_work(root: Path, name: str) -> Callable:
+    """The work function an ops/*.json names: "<file>.py:<function>", a
+    file of ops/ loaded by path, or else a function of work.py."""
+    if ":" not in name:
+        return getattr(work, name)
+    file, function = name.split(":", 1)
+    if Path(file).name != file or not file.endswith(".py"):
+        raise SystemExit(f"work {name!r}: name a .py file of ops/")
+    return getattr(load_file(root / "ops" / file, "vosbench_ops_"),
+                   function)
 
 
 @dataclasses.dataclass
@@ -281,12 +304,47 @@ class Runner:
         return rec
 
 
-def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
-             t_process: float, program: Optional[Callable] = None) -> Dict:
-    """One run. `program(cell, weights, device)` builds the server under
-    test (the port by default). Returns the result line's fields plus the
-    check's numbers under 'checks'."""
-    device = torch.device(device)
+def program_tracing():
+    """The program's spans and counters (`aot_tpu_torch.utils.tracing`),
+    or None where the program has none: then a run goes as before, with no
+    stage table and no counters to read."""
+    try:
+        from aot_tpu_torch.utils import tracing
+    except ImportError:
+        return None
+    return tracing
+
+
+def feed(video: Video, t: int, stream: Iterator[Video]
+         ) -> Iterator[Tuple[Video, int]]:
+    """(video, frame) to serve next, from frame t of `video` on, then the
+    stream's next videos."""
+    while True:
+        if t >= video.frames:
+            video, t = next(stream), 0
+        yield video, t
+        t += 1
+
+
+@dataclasses.dataclass
+class Setup:
+    """What set-up leaves for the window: the program serving, and the
+    frames to serve next."""
+    layout: Dict[str, tuple]
+    weights: Dict[str, torch.Tensor]
+    server: object
+    traffic: Traffic
+    runner: "Runner"
+    frames: Iterator[Tuple[Video, int]]
+
+
+def setup(cell: Cell, seed: int, device,
+          program: Optional[Callable] = None) -> Setup:
+    """A run's set-up: TF32 off and cuDNN autotuning on, as the eval CLI
+    sets them; the weights and the frame pool from the seed; the program
+    `program(cell, weights, device)` (the port by default); the warm-up
+    video; the checked videos drawn from the stream's first pass; then the
+    stream's reference frame and first `fill_steps` frames."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
@@ -296,20 +354,81 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     server = (program or port_program)(cell, weights, device)
     traffic = Traffic(wl, seed, device)
     runner = Runner(cell, server, traffic, device)
-
-    # set-up: the warm-up video, then the stream's first fill_steps frames
     warm = traffic.warmup()
     for t in range(warm.frames):
         runner.run(warm, t, window=False)
     first, stream = traffic.first_pass(traffic.videos())
-    runner.checked = check.sample_videos(first, seed,
-                                         wl["check"]["videos"])
-    video = next(stream)
-    t = 0
-    for t in range(wl.get("fill_steps", 0) + 1):
-        runner.run(video, t, window=False)
-    t += 1
+    runner.checked = check.sample_videos(first, seed, wl["check"]["videos"],
+                                         wl["check"].get("within_frames"))
+    frames = feed(next(stream), 0, stream)
+    for _ in range(wl.get("fill_steps", 0) + 1):
+        runner.run(*next(frames), window=False)
     synchronize(device)
+    return Setup(layout, weights, server, traffic, runner, frames)
+
+
+@dataclasses.dataclass
+class Profiled:
+    """The traced frames as recorded; read once the window has closed
+    (writing out the profiler's trace takes seconds)."""
+    prof: object
+    window: List[float]          # the traced frames' span, wall clock us
+    frames: int
+    spans: Optional[list]        # the program's span records
+    counters: Optional[Dict[str, float]]   # their change over the frames
+
+    def read(self, phases) -> Tuple[Trace, Optional[Stages]]:
+        trace = Trace.from_profiler(self.prof, self.window, phases)
+        self.prof = None
+        stages = (Stages(trace, self.spans, self.frames)
+                  if self.spans is not None else None)
+        return trace, stages
+
+
+def profile_frames(runner: "Runner", frames, count: int, device,
+                   tracing) -> Profiled:
+    """The traced sub-window: torch.profiler on the device's activity
+    (recording every host op as well would slow the host several-fold and
+    read as device idle time) over LEAD_IN frames, which take the
+    profiler's start-up, then `count` frames. With the program's tracing
+    module given, its spans are on from just before the profiler starts
+    to just after it stops, and its counters are read at the `count`
+    frames' edges."""
+    prof = torch.profiler.profile(activities=profiler_activities(device))
+    if tracing is not None:
+        tracing.take_spans()
+        prev = tracing.enable_spans(True)
+    prof.start()
+    for _ in range(LEAD_IN):
+        runner.run(*next(frames), window=True)
+    runner.profiling = True
+    before = tracing.counters() if tracing is not None else None
+    window = [time.time_ns() / 1e3, None]
+    for _ in range(count):
+        runner.run(*next(frames), window=True)
+    window[1] = time.time_ns() / 1e3
+    after = tracing.counters() if tracing is not None else None
+    runner.profiling = False
+    prof.stop()
+    spans = counters = None
+    if tracing is not None:
+        tracing.enable_spans(prev)
+        spans = tracing.take_spans()
+        counters = {k: after.get(k, 0) - before.get(k, 0)
+                    for k in sorted(set(after) | set(before))
+                    if after.get(k, 0) != before.get(k, 0)}
+    return Profiled(prof, window, count, spans, counters)
+
+
+def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
+             t_process: float, program: Optional[Callable] = None) -> Dict:
+    """One run. `program(cell, weights, device)` builds the server under
+    test (the port by default). Returns the result line's fields plus the
+    check's numbers under 'checks'."""
+    device = torch.device(device)
+    wl = cell.workload
+    s = setup(cell, seed, device, program)
+    runner, frames = s.runner, s.frames
     setup_peak = (torch.cuda.max_memory_allocated(device)
                   if device.type == "cuda" else 0)
     if device.type == "cuda":
@@ -325,32 +444,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     t_close = t_window + seconds
     t_trace = t_window + seconds * TRACE_START
     sub = None
-    prof = None
+    profiled = None
     while time.perf_counter() < t_close:
-        if t >= video.frames:
-            video, t = next(stream), 0
         if trace and sub is None and time.perf_counter() >= t_trace:
-            # CUDA activity only: recording every host op would slow the
-            # host several-fold and read as device idle time
             sub = [time.perf_counter(), None]
-            prof = torch.profiler.profile(
-                activities=profiler_activities(device))
-            prof.start()
-            for i in range(LEAD_IN + wl["trace_frames"]):
-                if t >= video.frames:
-                    video, t = next(stream), 0
-                if i == LEAD_IN:
-                    runner.profiling = True
-                    span = [time.time_ns() / 1e3, None]
-                runner.run(video, t, window=True)
-                t += 1
-            span[1] = time.time_ns() / 1e3
-            runner.profiling = False
-            prof.stop()
+            profiled = profile_frames(runner, frames, wl["trace_frames"],
+                                      device, program_tracing())
             sub[1] = time.perf_counter()
             continue
-        runner.run(video, t, window=True)
-        t += 1
+        runner.run(*next(frames), window=True)
     synchronize(device)
     gc.enable()
     gc.unfreeze()
@@ -371,7 +473,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                             "memory_peak_bytes": 0}
 
     run = RunRecord(cell, runner, done, seconds, t_window, t_close, sub,
-                    layout, traffic.size)
+                    s.layout, s.traffic.size)
     if not trace:
         times = [f.end - f.start for f in done]
         e2e = {
@@ -384,8 +486,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             value, unit = e2e[m["name"]]
             result["metrics"][m["name"]] = {"value": value, "unit": unit}
     else:
-        run.trace = Trace.from_profiler(prof, span, runner.phases)
-        del prof
+        run.trace, run.stages = profiled.read(runner.phases)
+        run.counters = profiled.counters
         for m in cell.per_layer:
             value = load_reader(cell.root, m["name"])(run)
             if value is not None:
@@ -393,16 +495,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                                                 "unit": m["unit"]}
         result["device"]["busy_s"] = run.trace.busy_s
         result["device"]["window_s"] = run.trace.window_s
-        result["breakdown"] = breakdown(run.trace)
+        result["breakdown"] = breakdown(run)
 
     # the check, once the program's state is freed
-    server.close()
-    del server
+    s.server.close()
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    checks = check.check(cell, runner, weights, traffic, device)
+    checks = check.check(cell, runner, s.weights, s.traffic, device)
     result["timing"] = {"check_s": time.perf_counter() - t_check,
                         "per_second": per_second(done, t_window, seconds),
                         "drift": checks["drift"]}
@@ -424,6 +525,19 @@ class RunRecord:
     layout: Dict
     size: tuple
     trace: Optional[Trace] = None
+    stages: Optional[Stages] = None      # None: the program has no spans
+    counters: Optional[Dict[str, float]] = None   # change over the traced
+                                                  # frames
+
+    @functools.cached_property
+    def stage_table(self) -> Optional[Dict[str, Dict[str, float]]]:
+        return self.stages.table() if self.stages is not None else None
+
+    def stage(self, name: str, key: str) -> Optional[float]:
+        """`key` (stages.Stages.table) of the span `name` a traced frame;
+        None where the program recorded no spans or never opened it."""
+        row = (self.stage_table or {}).get(name)
+        return None if row is None else row[key]
 
     def before_trace(self) -> List[Frame]:
         """The window's frames served before the profiler started: once
@@ -440,7 +554,7 @@ class RunRecord:
     def frame_work(self, f: Frame):
         return work.frame_work(work.model_key(self.cell.config),
                                tuple(self.layout.items()), tuple(self.size),
-                               f.kind, f.live)
+                               f.kind, f.live, self.cell.root)
 
     def op_roofline(self, op: str) -> Optional[float]:
         """100 x the least time of the traced frames' reads of `op` over the
@@ -450,7 +564,7 @@ class RunRecord:
         if spec is None or self.trace is None:
             return None
         device_s = self.trace.matched_seconds(spec["kernels"])
-        fn = getattr(work, spec["work"])
+        fn = load_work(self.cell.root, spec["work"])
         bound = sum(fn(self.frame_work(f)[1]) for f in self.traced())
         if device_s <= 0 or bound <= 0:
             return None
@@ -471,9 +585,27 @@ def percentile(values, q: float) -> float:
     return float(np.percentile(np.asarray(values, dtype=np.float64), q))
 
 
-def breakdown(tr: Trace) -> Dict:
+def breakdown(run: RunRecord, top: int = 10) -> Dict:
+    """The traced frames' largest device operations and idle gaps by the
+    harness's phase (seconds over the frames); where the program recorded
+    spans, its stages by device time (each span with everything under
+    it), the idle time by span, and its counters a frame (by name)."""
+    tr = run.trace
     ops = sorted(tr.device_time_by_name().items(), key=lambda kv: -kv[1])
     gaps = sorted(tr.idle_by_phase().items(), key=lambda kv: -kv[1])
-    return {"device_ops": [[n[:160], s] for n, s in ops[:10]],
-            "idle_gaps": [[n, s] for n, s in gaps[:10]]}
+    out = {"device_ops": [[n[:160], s] for n, s in ops[:top]],
+           "idle_gaps": [[n, s] for n, s in gaps[:top]]}
+    if run.stage_table is not None:
+        frames = run.stages.frames
+        stages = sorted(((n, r["device_ms"] * frames / 1e3)
+                         for n, r in run.stage_table.items()),
+                        key=lambda kv: -kv[1])
+        out["stages"] = [[n, s] for n, s in stages[:top]]
+        out["idle_by_span"] = [[n, s] for n, s in
+                               list(run.stages.idle_by_span().items())[:top]]
+    if run.counters is not None:
+        frames = max(len(run.traced()), 1)
+        out["counters"] = [[n, v / frames] for n, v in
+                           sorted(run.counters.items())[:top]]
+    return out
 

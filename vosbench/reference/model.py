@@ -3,14 +3,16 @@ inference: the yardstick that decides whether a run is correct.
 
 It follows the published model (yoxu515/aot-benchmark: networks/models/
 aot.py and deaot.py, networks/layers/transformer.py, attention.py, basic.py,
-networks/decoders/fpn.py, networks/encoders/mobilenetv2.py and resnet.py at
-output stride 16) and reads its weights by the published state-dict names
-from a plain dict of tensors. It imports nothing of the program under test.
+networks/decoders/fpn.py) and reads its weights by the published
+state-dict names from a plain dict of tensors. It imports nothing of the
+program under test. The encoder is the file `encoders/<MODEL_ENCODER>.py`
+of this package (networks/encoders/ at output stride 16).
 
 Every matrix product is a plain `F.linear`, `F.conv2d` or `@`; attention is
 dense softmax over the memory it is given and the local read unfolds the
-15 x 15 window. The two attention reads go through `Ops`, so that a caller
-can count their work instead of running them (vosbench/work.py).
+15 x 15 window. The attention reads go through `Ops`, so that a caller can
+count their work instead of running them (vosbench/work.py): the model's
+two by their own methods, an encoder's by the `Read` it declares.
 
 Departures from the published code: none in the arithmetic. Layouts are
 token-major (B, HW, C) and NCHW for convolutions, as in the published code.
@@ -18,8 +20,9 @@ token-major (B, HW, C) and NCHW for convolutions, as in the published code.
 
 from __future__ import annotations
 
+import importlib
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,19 +35,8 @@ NEG_INF = -1e30
 NEG_LOGIT = -1e10       # ids beyond the video's objects (aot_engine.py:356)
 MAX_DIS = 7             # the local window's radius: 15 x 15 slots
 
-# MobileNetV2 at output stride 16: (in, out, stride, dilation, expand) of
-# each inverted residual, features[1..17] (mobilenetv2.py:150-197)
-MBV2_BLOCKS = ((32, 16, 1, 1, 1), (16, 24, 2, 1, 6), (24, 24, 1, 1, 6),
-               (24, 32, 2, 1, 6), (32, 32, 1, 1, 6), (32, 32, 1, 1, 6),
-               (32, 64, 2, 1, 6), (64, 64, 1, 1, 6), (64, 64, 1, 1, 6),
-               (64, 64, 1, 1, 6), (64, 96, 1, 1, 6), (96, 96, 1, 1, 6),
-               (96, 96, 1, 1, 6), (96, 160, 1, 1, 6), (160, 160, 1, 2, 6),
-               (160, 160, 1, 2, 6), (160, 320, 1, 2, 6))
-MBV2_STAGE_ENDS = (3, 6, 13)
-RESNET50_LAYERS = ((64, 3, 1), (128, 4, 2), (256, 6, 2))
 
-
-# --- the two attention reads ------------------------------------------------
+# --- the attention reads ------------------------------------------------
 
 def global_read(q, k, v, heads: int, d: int, role: str = "") -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v over every key given, per head.
@@ -93,11 +85,28 @@ def local_read(q, k, v, rel_bias, rel_v, heads: int,
     return out.permute(0, 2, 1, 3).reshape(b, hw, heads * dv)
 
 
+class Read(NamedTuple):
+    """An attention read that an encoder declares of its own (a Swin
+    window read, say), called as `ops.read(decl, *args)` with positional
+    arguments: `plain(*args)` computes it; `role` names it in the work
+    counts (an ops/*.json work function sums the reads of its role);
+    `work(*shapes)` gives its (flops, bytes), where `shapes` are the
+    arguments with each tensor replaced by its shape."""
+    name: str
+    role: str
+    plain: Callable
+    work: Callable
+
+
 class Ops:
     """The attention reads the model calls; vosbench/work.py swaps in a
     counting stand-in."""
     global_read = staticmethod(global_read)
     local_read = staticmethod(local_read)
+
+    @staticmethod
+    def read(decl: Read, *args):
+        return decl.plain(*args)
 
 
 # --- layers -----------------------------------------------------------------
@@ -167,59 +176,18 @@ def sine_position(h: int, w: int, d_model: int, device) -> torch.Tensor:
     return pos.reshape(1, h * w, d_model)
 
 
-# --- encoders ---------------------------------------------------------------
-
-def mobilenetv2(P: Params, x) -> List[torch.Tensor]:
-    def cbr(name, x, stride=1, dilation=1, groups=1):
-        k = P[name + ".0.weight"].shape[-1]
-        x = conv(P, name + ".0", x, stride, (k - 1) // 2 * dilation, dilation,
-                 groups)
-        return torch.clamp(frozen_bn(P, name + ".1", x), 0.0, 6.0)
-
-    outs = []
-    x = cbr("encoder.features.0", x, stride=2)
-    for i, (inp, oup, stride, dil, expand) in enumerate(MBV2_BLOCKS, start=1):
-        pre = f"encoder.features.{i}.conv"
-        hidden = inp * expand
-        y, j = x, 0
-        if expand != 1:
-            y = cbr(f"{pre}.0", y)
-            j = 1
-        y = cbr(f"{pre}.{j}", y, stride, dil, groups=hidden)
-        y = frozen_bn(P, f"{pre}.{j + 2}", conv(P, f"{pre}.{j + 1}", y))
-        x = x + y if stride == 1 and inp == oup else y
-        if i in MBV2_STAGE_ENDS:
-            outs.append(x)
-    x = cbr("encoder.features.18", x)
-    return outs + [x]
-
-
-def resnet50(P: Params, x) -> List[torch.Tensor]:
-    x = torch.relu(frozen_bn(P, "encoder.bn1",
-                             conv(P, "encoder.conv1", x, 2, 3)))
-    x = F.max_pool2d(x, 3, 2, 1)
-    outs = []
-    for li, (_, blocks, stride) in enumerate(RESNET50_LAYERS, start=1):
-        for bi in range(blocks):
-            pre = f"encoder.layer{li}.{bi}"
-            s = stride if bi == 0 else 1
-            y = torch.relu(frozen_bn(P, pre + ".bn1",
-                                     conv(P, pre + ".conv1", x)))
-            y = torch.relu(frozen_bn(P, pre + ".bn2",
-                                     conv(P, pre + ".conv2", y, s, 1)))
-            y = frozen_bn(P, pre + ".bn3", conv(P, pre + ".conv3", y))
-            if bi == 0:
-                x = frozen_bn(P, pre + ".downsample.1",
-                              conv(P, pre + ".downsample.0", x, s))
-            x = torch.relu(x + y)
-        outs.append(x)
-    return outs + [outs[-1]]
-
-
-ENCODERS = {"mobilenetv2": mobilenetv2, "resnet50": resnet50}
-
-
 # --- the model --------------------------------------------------------------
+
+def encoder(name: str):
+    """The module `encoders/<name>.py` beside this file."""
+    try:
+        return importlib.import_module(f"{__package__}.encoders.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"{__package__}.encoders.{name}":
+            raise
+        raise ValueError(f"no reference encoder {name!r}: add "
+                         f"reference/encoders/{name}.py") from None
+
 
 class Model:
     """AOT or DeAOT at inference, from a flat state dict `P` and the model
@@ -231,7 +199,7 @@ class Model:
         self.P = P
         self.ops = ops
         self.deaot = cfg["MODEL_VOS"] == "deaot"
-        self.encoder = ENCODERS[cfg["MODEL_ENCODER"]]
+        self.encoder = encoder(cfg["MODEL_ENCODER"])
         self.layers = cfg["MODEL_LSTT_NUM"]
         self.att_heads = cfg["MODEL_ATT_HEADS"]
         self.self_heads = cfg["MODEL_SELF_HEADS"]
@@ -246,7 +214,7 @@ class Model:
         mean = torch.tensor(IMAGENET_MEAN, device=img_u8.device)
         std = torch.tensor(IMAGENET_STD, device=img_u8.device)
         x = ((img_u8.float() / 255.0 - mean) / std).permute(0, 3, 1, 2)
-        xs = self.encoder(self.P, x.contiguous())
+        xs = self.encoder.encode(self.P, x.contiguous(), self.ops)
         xs[-1] = conv(self.P, "encoder_projector", xs[-1])
         return xs
 
@@ -384,7 +352,7 @@ class Model:
         size_2d = tuple(x16.shape[-2:])
         x = to_seq(x16)
         pos = self.pos(size_2d, x.device)
-        x_id, currs = None, []
+        x_id, currs, outs = None, [], []
         for i in range(self.layers):
             li = None if lt is None else lt[i]
             si = None if st is None else st[i]
@@ -393,13 +361,18 @@ class Model:
                                                  pos, size_2d)
             else:
                 x, _, curr = self.aot_block(i, x, li, si, id_emb, pos, size_2d)
+                outs.append(x)
             currs.append(curr)
         if self.deaot:       # GroupNorm(2) on [visual, identity]
             out = to_2d(torch.cat([x, x_id], dim=-1), size_2d)
             out = group_norm(self.P, "LSTT.decoder_norms.0.gn", out, 2)
             return [out], currs
-        out = layer_norm(self.P, "LSTT.decoder_norms.0", x)
-        return [xs[-1], to_2d(out, size_2d)], currs
+        # AOT hands the decoder every block's output, each under its own
+        # norm (MODEL_DECODER_INTERMEDIATE_LSTT, set in every published AOT
+        # config; transformer.py LongShortTermTransformer's decoder_norms)
+        return [xs[-1]] + [
+            to_2d(layer_norm(self.P, f"LSTT.decoder_norms.{i}", out), size_2d)
+            for i, out in enumerate(outs)], currs
 
     def decode(self, inputs, xs, obj_num: int) -> torch.Tensor:
         """FPN head -> (1, h4, w4, M + 1) logits, NHWC, ids beyond obj_num

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from vosbench.reference.model import Model
+from .model import Model
 
 
 class Stream:

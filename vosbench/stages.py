@@ -1,20 +1,25 @@
 """Where a cell's frames spend their time, stage by stage: the program's
 own spans (`aot_tpu_torch.utils.tracing`) put on the device trace's
-clock. A measurement run by hand beside the benchmark; `run.py` does not
-call it.
+clock.
+
+`Stages` places the traced sub-window's device operations, launches and
+idle gaps under the program's spans. Every traced run of the benchmark
+builds one (`harness.RunRecord.stages`): the per-layer readers
+`metrics/<name>.py` read its table, and the result's `breakdown` gives its
+stages, its idle time by span and the program's counters.
+
+By hand, beside the benchmark:
 
     python3 vosbench/stages.py --workload <cell> --seed <n> [--out FILE]
 
-One process runs the cell's set-up as `run.py` does (weights, frame pool,
-warm-up video, fill), then
+One process runs the cell's set-up as `run.py` does (`harness.setup`),
+then
 
 1. `--cost-frames` frames with spans off and on in turns, a frame each,
    no profiler: the median host time of `step` (call to return) each
    way, and the host's cost of one span off and on, timed alone;
-2. the traced frames: torch.profiler on CUDA activity with the program's
-   spans on from the profiler's start (the lead-in frames included), the
-   cell's `trace_frames` frames, and the program's counters before and
-   after them.
+2. the traced frames, as a traced run takes them
+   (`harness.profile_frames`).
 
 Its last line of standard output is one JSON object (also written to
 `--out`): per span name and traced frame, the kernels launched and their
@@ -24,19 +29,19 @@ span), its host self time (`host_self_ms`: its duration less its
 children's) and the device's idle time in gaps that began while it was
 innermost (`idle_ms`); the idle gaps by innermost span or, outside every
 span, by the harness phase (`idle_by_span`); each innermost span's
-largest device operations (`ops_by_span`); the counters a frame; the
-stages' values under the names of the per-layer metrics they would feed;
-and how each device operation was placed (`join`).
+largest device operations (`ops_by_span`); the counters a frame; and how
+each device operation was placed (`join`).
 
 A device operation goes to the span that was innermost on the host when
 its launch ran: the trace's `cuda_runtime` and `cuda_driver` events carry
 the host time of each launch, and `args.correlation` ties a kernel, copy
-or memset to its launch. So a kernel counts for the stage that launched
-it, whenever it ran on the device. An operation whose launch the trace
-lacks is placed by the host's span at the moment it started on the device
-(`join.by_start`), which is right only where the host waits for the
-device. Outside every span an operation goes to the harness phase open at
-its launch (upload, step, readback, video_switch, or other).
+or memset to its launch (`trace.Trace.launches`). So a kernel counts for
+the stage that launched it, whenever it ran on the device. An operation
+whose launch the trace lacks is placed by the host's span at the moment it
+started on the device (`join.by_start`), which is right only where the
+host waits for the device. Outside every span an operation goes to the
+harness phase open at its launch (upload, step, readback, video_switch, or
+other).
 """
 
 from __future__ import annotations
@@ -44,10 +49,8 @@ from __future__ import annotations
 import argparse
 import bisect
 import json
-import os
 import statistics
 import sys
-import tempfile
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -56,52 +59,40 @@ CHECKOUT = Path(__file__).resolve().parent.parent
 if str(CHECKOUT) not in sys.path:
     sys.path.insert(0, str(CHECKOUT))
 
-from vosbench.trace import DEVICE_CATS, Trace  # noqa: E402
+from vosbench.trace import Trace  # noqa: E402
 
-LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 SPAN_TIMING_CALLS = 100_000
 
-# the stage under which each per-layer reading is taken
-METRICS = {
-    "model.encode_launches_per_frame": ("encode", "launches"),
-    "model.encode_device_ms": ("encode", "device_ms"),
-    "model.lstt_device_ms": ("lstt", "device_ms"),
-    "model.lt_read_device_ms": ("lt_read", "device_ms"),
-    "infer.update_memory_device_ms": ("update_memory", "device_ms"),
-}
+
+def self_ns(spans) -> List[int]:
+    """Each closed span's duration less the time its children cover (the
+    children of one span nest on one thread and never overlap). The
+    yardstick's own arithmetic: the benchmark takes only the program's
+    records, not its `tracing.self_ns`."""
+    own = [(s.end_ns - s.start_ns) if s.end_ns is not None else 0
+           for s in spans]
+    for s in spans:
+        if s.parent >= 0 and s.end_ns is not None:
+            own[s.parent] -= s.end_ns - s.start_ns
+    return own
 
 
 class Stages:
     """The traced sub-window's device operations, launches and idle gaps
     placed under the program's spans.
 
-    events: the Chrome trace's; base_us: its time origin on the wall
-    clock; spans: `tracing.take_spans()` records (wall clock, ns); window
-    and phases: the harness's, on the wall clock in microseconds; frames:
-    the frames served in the window."""
+    trace: the sub-window's (trace.Trace, with its launches); spans: the
+    program's `tracing.take_spans()` records (wall clock, ns), the
+    lead-in frames' included; frames: the traced frames."""
 
-    def __init__(self, events: List[Dict], base_us: float, spans,
-                 window: Tuple[float, float],
-                 phases: Sequence[Tuple[str, float, float]], frames: int):
-        self.trace = Trace(events, base_us, window, phases)
+    def __init__(self, trace: Trace, spans, frames: int):
+        self.trace = trace
         self.frames = frames
         self.spans = list(spans)
-        lo, hi = window
-        launch_at: Dict[int, float] = {}
-        ops = []
-        for e in events:
-            if e.get("ph") != "X":
-                continue
-            corr = (e.get("args") or {}).get("correlation")
-            start = base_us + float(e["ts"])
-            if e.get("cat") in LAUNCH_CATS and corr is not None:
-                launch_at[corr] = start
-            elif e.get("cat") in DEVICE_CATS:
-                end = start + float(e.get("dur", 0.0))
-                if end > lo and start < hi:
-                    ops.append((start, end, e["cat"], corr,
-                                e.get("name", "")))
-        ops.sort()
+        lo, hi = trace.window
+        launch_at = trace.launches
+        ops = sorted((start, end, cat, corr, name)
+                     for cat, name, start, end, corr in trace.ops)
         self._segments()
         self.by_launch = self.by_start = 0
         # per op: (exclusive device seconds, is a kernel, label, name) where
@@ -168,8 +159,6 @@ class Stages:
         recorded."""
         if not self.spans or self.frames <= 0:
             return None
-        from aot_tpu_torch.utils import tracing
-
         keys = ("launches", "device_ms", "self_launches", "self_device_ms",
                 "host_self_ms", "idle_ms")
         out: Dict[str, Dict[str, float]] = {}
@@ -187,7 +176,7 @@ class Stages:
                 row(name)["device_ms"] += own * 1e3
                 row(name)["launches"] += kernel
         lo, hi = self.trace.window
-        for s, own in zip(self.spans, tracing.self_ns(self.spans)):
+        for s, own in zip(self.spans, self_ns(self.spans)):
             if s.end_ns is not None and lo <= s.start_ns / 1e3 < hi:
                 row(s.name)["host_self_ms"] += own / 1e6
         for s, e in self.trace.idle_gaps():
@@ -240,13 +229,6 @@ class Stages:
                                   or label in phases))
         return kept / total if total > 0 else 0.0
 
-    def metrics(self) -> Dict[str, float]:
-        """The stages' readings under the per-layer metrics' names; a
-        metric whose stage was never opened is left out."""
-        table = self.table() or {}
-        return {m: table[stage][key] for m, (stage, key) in METRICS.items()
-                if stage in table}
-
 
 def span_cost_ns(calls: int = SPAN_TIMING_CALLS) -> Dict[str, float]:
     """The host's cost of one `with span(...)`, off and on, timed alone."""
@@ -271,42 +253,12 @@ def measure(cell, seed: int, device, cost_frames: int) -> Dict:
 
     import torch
 
-    from aot_tpu_torch.utils import tracing
     from vosbench import harness
-    from vosbench.traffic import Traffic
-    from vosbench.weights import make_weights
 
+    tracing = harness.program_tracing()
     device = torch.device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = True
-    wl = cell.workload
-    weights = make_weights(harness.weight_layout(cell), seed, device)
-    server = harness.port_program(cell, weights, device)
-    traffic = Traffic(wl, seed, device)
-    runner = harness.Runner(cell, server, traffic, device)
-    warm = traffic.warmup()
-    for t in range(warm.frames):
-        runner.run(warm, t, window=False)
-    _, stream = traffic.first_pass(traffic.videos())
-    video = next(stream)
-    t = 0
-    for t in range(wl.get("fill_steps", 0) + 1):
-        runner.run(video, t, window=False)
-    t += 1
-    harness.synchronize(device)
+    run = harness.setup(cell, seed, device)
     setup_counters = tracing.counters()
-
-    def frame(on: bool):
-        nonlocal video, t
-        if t >= video.frames:
-            video, t = next(stream), 0
-        prev = tracing.enable_spans(on)
-        rec = runner.run(video, t, window=True)
-        tracing.enable_spans(prev)
-        t += 1
-        return rec
-
     gc.collect()
     gc.freeze()
     gc.disable()
@@ -314,47 +266,25 @@ def measure(cell, seed: int, device, cost_frames: int) -> Dict:
     spans_a_frame = []
     for i in range(cost_frames):
         on = bool(i % 2)
-        rec = frame(on)
+        prev = tracing.enable_spans(on)
+        rec = run.runner.run(*next(run.frames), window=True)
+        tracing.enable_spans(prev)
         made = len(tracing.take_spans())
         if rec.kind == "step":
             enqueue[on].append(rec.enqueue)
             if on:
                 spans_a_frame.append(made)
-
-    prof = torch.profiler.profile(
-        activities=harness.profiler_activities(device))
-    prev = tracing.enable_spans(True)
-    prof.start()
-    for _ in range(harness.LEAD_IN):
-        frame(True)
-    runner.profiling = True
-    before = tracing.counters()
-    window = [time.time_ns() / 1e3, None]
-    traced = [frame(True) for _ in range(wl["trace_frames"])]
-    window[1] = time.time_ns() / 1e3
-    after = tracing.counters()
-    runner.profiling = False
-    tracing.enable_spans(prev)
-    prof.stop()
+    profiled = harness.profile_frames(run.runner, run.frames,
+                                      cell.workload["trace_frames"], device,
+                                      tracing)
     harness.synchronize(device)
     gc.enable()
     gc.unfreeze()
-    spans = tracing.take_spans()
-    fd, path = tempfile.mkstemp(suffix=".json", prefix="vosbench-stages-")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            data = json.load(f)
-    finally:
-        os.remove(path)
-    base_us = float(data.get("baseTimeNanoseconds", 0)) / 1e3
-    st = Stages(data["traceEvents"], base_us, spans, tuple(window),
-                runner.phases, len(traced))
-    n = len(traced)
+    trace, st = profiled.read(run.runner.phases)
+    n = profiled.frames
     off, on = (statistics.median(enqueue[k]) * 1e3 if enqueue[k] else None
                for k in (False, True))
-    server.close()
+    run.server.close()
     return {
         "workload": cell.name, "seed": seed,
         "device": (torch.cuda.get_device_name(device)
@@ -362,17 +292,14 @@ def measure(cell, seed: int, device, cost_frames: int) -> Dict:
         "frames": n,
         "join": {"by_launch": st.by_launch, "by_start": st.by_start},
         "kernel_share_under_spans_or_readback": st.kernel_share(),
-        "launches_per_frame": len(st.trace.kernels()) / n,
-        "busy_ms_per_frame": st.trace.busy_s * 1e3 / n,
-        "window_s": st.trace.window_s,
-        "metrics": st.metrics(),
+        "launches_per_frame": len(trace.kernels()) / n,
+        "busy_ms_per_frame": trace.busy_s * 1e3 / n,
+        "window_s": trace.window_s,
         "stages": st.table(),
         "idle_by_span": st.idle_by_span(),
         "ops_by_span": st.ops_by_span(),
         "device_s_outside_spans": st.outside_spans(),
-        "counters": {k: (after.get(k, 0) - before.get(k, 0)) / n
-                     for k in sorted(set(after) | set(before))
-                     if after.get(k, 0) != before.get(k, 0)},
+        "counters": {k: v / n for k, v in profiled.counters.items()},
         "setup_counters": setup_counters,
         "cost": {"enqueue_ms_spans_off": off, "enqueue_ms_spans_on": on,
                  "frames_each": [len(enqueue[False]), len(enqueue[True])],
@@ -397,9 +324,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("vosbench stages: needs a CUDA card", file=sys.stderr)
         return 2
-    try:
-        import aot_tpu_torch.utils.tracing  # noqa: F401
-    except ImportError:
+    if harness.program_tracing() is None:
         print("vosbench stages: the program has no spans "
               "(aot_tpu_torch.utils.tracing)", file=sys.stderr)
         return 2

@@ -1,7 +1,8 @@
 """The harness rehearsed on the CPU at tiny sizes: each cell end to end, the
 reference against the port's plain path, the control and the planted
-faults failing the check, the yardstick's counts, a cell added as files
-only, and the import rule."""
+faults failing the check, the yardstick's counts, a cell and a
+configuration with a new backbone added as files only, the program's spans
+read, and the import rule."""
 
 import json
 import math
@@ -19,7 +20,7 @@ from vosbench import check, control, harness, traffic, work
 CHECKOUT = Path(__file__).resolve().parents[2]
 
 BENCH = CHECKOUT / "BENCHMARK.json"
-CELLS = ("aott.davis480", "r50_deaotl.longstream480")
+CELLS = ("aott.davis480", "r50_deaotl.longstream480", "aott.davis1080")
 SEED = 2 ** 31 + 977          # wider than 32 signed bits
 
 
@@ -30,7 +31,7 @@ def tiny(cell: harness.Cell) -> harness.Cell:
     wl = cell.workload
     wl.update(frame_size=[65, 97], trace_frames=3)
     wl["check"]["keep_logits_every"] = 4
-    if cell.name.startswith("aott"):
+    if not wl.get("fill_steps"):
         wl.update(videos=[[6, 2], [4, 1], [5, 3]], warmup_video=[3, 2])
     else:
         wl.update(fill_steps=16)
@@ -78,7 +79,8 @@ def test_cell_rehearsal(name, trace):
     assert res["attempted"] > 0 and res["failed"] == 0
     if trace:
         assert res["device"]["window_s"] > 0
-        assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+        assert set(res["breakdown"]) == {"device_ops", "idle_gaps", "stages",
+                                         "idle_by_span", "counters"}
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -167,7 +169,8 @@ def test_frame_work_reads():
     cell = harness.load_cell(BENCH, "r50_deaotl.longstream480")
     layout = tuple(harness.weight_layout(cell).items())
     key = work.model_key(cell.config)
-    flops, reads = work.frame_work(key, layout, (481, 849), "step", 64)
+    flops, reads = work.frame_work(key, layout, (481, 849), "step", 64,
+                                   cell.root)
     lt = [r for r in reads if r[1] == "lt"]
     assert [r[4] for r in lt] == [64 * 1674] * 3
     assert len([r for r in reads if r[1] == "st"]) == 3
@@ -202,9 +205,10 @@ def test_forbidden_modules():
 
 def test_rehearsal_loads_no_jax():
     code = (f"import sys; sys.path.insert(0, {str(CHECKOUT)!r})\n"
+            "import torch; torch.set_num_threads(2)\n"
             "from vosbench.tests import test_vosbench_harness as t\n"
             "from vosbench import harness\n"
-            "assert t.rehearse('aott.davis480', seconds=0.5)['correct']\n"
+            "assert t.rehearse('aott.davis480')['correct']\n"
             "print(harness.forbidden_modules(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600, cwd=CHECKOUT)
@@ -222,23 +226,27 @@ def test_cli_refuses_without_card():
     assert out.returncode != 0 and out.stdout.strip() == ""
 
 
-def test_snapped_size_is_the_evaluators():
-    """480 x 854 frames reach the engine at 481 x 849 under the eval CLI's
-    default --max_resolution (the workload files' frame_size)."""
+@pytest.mark.parametrize("name,frame,edge", [
+    ("aott.davis480", (480, 854), 480 * 1.3),
+    ("r50_deaotl.longstream480", (480, 854), 480 * 1.3),
+    ("aott.davis1080", (1080, 1920), 1080)])
+def test_snapped_size_is_the_evaluators(name, frame, edge):
+    """The workload files' frame_size is the size at which the eval CLI
+    hands a DAVIS frame to the engine: 480 x 854 frames at its default
+    --max_resolution, and 1080 x 1920 frames at --max_resolution 1080 with
+    TEST_DATASET_FULL_RESOLUTION=True (the full-resolution frames)."""
     import numpy as np
 
     from aot_tpu_torch.data.video_aug import multi_restrict_size
 
-    edge = 480 * 1.3
-    v = multi_restrict_size(np.zeros((480, 854, 3), np.uint8), None,
+    v = multi_restrict_size(np.zeros(frame + (3,), np.uint8), None,
                             multi_scale=[1.0], flip=False,
                             max_short_edge=edge,
                             max_long_edge=edge * 800 / 480,
                             align_corners=True)
-    for name in CELLS:
-        wl = json.loads((CHECKOUT / "vosbench" / "workloads" /
-                         f"{name}.json").read_text())
-        assert tuple(v[0]["image"].shape[:2]) == tuple(wl["frame_size"])
+    wl = json.loads((CHECKOUT / "vosbench" / "workloads" /
+                     f"{name}.json").read_text())
+    assert tuple(v[0]["image"].shape[:2]) == tuple(wl["frame_size"])
 
 
 @pytest.mark.card

@@ -9,7 +9,11 @@ which the harness records the sub-window's span and its own phases
 (upload, step, readback, video_switch). From it:
 
 - the device's operations: kernels, copies and memsets, each (name,
-  start, end), inside the sub-window;
+  start, end, correlation), inside the sub-window;
+- the host's launches (the runtime's and the driver's launch events), each
+  a correlation and its start, which tie an operation to the moment the
+  host launched it (vosbench/stages.py places it under the program's span
+  open then);
 - the device's busy time: the union of those intervals, so operations
   that overlap count once;
 - the idle gaps, each labelled by the harness phase the host was in when
@@ -21,9 +25,10 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
 class Trace:
@@ -35,14 +40,22 @@ class Trace:
         self.window = window
         self.phases = sorted(phases, key=lambda p: p[1])
         lo, hi = window
-        self.ops: List[Tuple[str, str, float, float]] = []
+        # (cat, name, start, end, correlation or None)
+        self.ops: List[Tuple[str, str, float, float, Optional[int]]] = []
+        self.launches: Dict[int, float] = {}   # correlation -> launch start
         for e in events:
-            if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+            if e.get("ph") != "X":
                 continue
+            corr = (e.get("args") or {}).get("correlation")
             start = base_us + float(e["ts"])
-            end = start + float(e.get("dur", 0.0))
-            if end > lo and start < hi:
-                self.ops.append((e["cat"], e.get("name", ""), start, end))
+            if e.get("cat") in LAUNCH_CATS:
+                if corr is not None:
+                    self.launches[corr] = start
+            elif e.get("cat") in DEVICE_CATS:
+                end = start + float(e.get("dur", 0.0))
+                if end > lo and start < hi:
+                    self.ops.append((e["cat"], e.get("name", ""), start, end,
+                                     corr))
 
     @classmethod
     def from_profiler(cls, prof, window, phases) -> "Trace":
@@ -62,13 +75,13 @@ class Trace:
         return (self.window[1] - self.window[0]) / 1e6
 
     def kernels(self) -> List[Tuple[str, float, float]]:
-        return [(n, s, e) for c, n, s, e in self.ops if c == "kernel"]
+        return [(n, s, e) for c, n, s, e, _ in self.ops if c == "kernel"]
 
     def busy_intervals(self) -> List[Tuple[float, float]]:
         """The union of device operations, clipped to the sub-window."""
         lo, hi = self.window
         merged: List[List[float]] = []
-        spans = sorted((max(s, lo), min(e, hi)) for _, _, s, e in self.ops)
+        spans = sorted((max(s, lo), min(e, hi)) for _, _, s, e, _ in self.ops)
         for s, e in spans:
             if merged and s <= merged[-1][1]:
                 merged[-1][1] = max(merged[-1][1], e)
@@ -104,7 +117,7 @@ class Trace:
 
     def device_time_by_name(self) -> Dict[str, float]:
         out: Dict[str, float] = {}
-        for _, n, s, e in self.ops:
+        for _, n, s, e, _ in self.ops:
             out[n] = out.get(n, 0.0) + (e - s) / 1e6
         return out
 

@@ -12,24 +12,29 @@ its bytes (each input read once, each output written once) over the
 bandwidth. An attention read counts only live keys and in-image window
 slots, whatever route the program takes for it.
 
-The model's operations a frame are counted by running the reference on the
-'meta' device (shapes only) under torch's FLOP counter, with the two
-attention reads replaced by a stand-in that records their shapes and adds
-the operations they need.
+The model's operations a frame are counted by running the cell's reference
+(reference.load(root)) on the 'meta' device (shapes only) under torch's
+FLOP counter, with the attention reads replaced by a stand-in that records
+their shapes and counts each read's operations once, by its own work
+function: `global_work` and `local_work` for the model's two reads, the
+`work` of its declaration (reference/model.py `Read`) for a read an
+encoder declares.
 """
 
 from __future__ import annotations
 
 import functools
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from vosbench.reference.model import MAX_DIS, Model
-from vosbench.reference.stream import Stream
+from vosbench import reference
 
+ROOT = Path(__file__).resolve().parent
+MAX_DIS = 7       # the published local window's radius (15 x 15 slots)
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -73,10 +78,19 @@ def global_work(lq, live, h, d, dv, elem: int = 4):
 
 class CountingOps:
     """Stands in for the reference's attention reads: records each read's
-    shape and returns zeros of the right shape (no work on 'meta')."""
+    shape. The model's two reads return zeros of the right shape (no work
+    on 'meta'); a declared read runs its plain version on 'meta', and the
+    operations the FLOP counter gives that run are kept in `plain_flops`,
+    for frame_work to take back out."""
 
     def __init__(self):
         self.reads: List[Tuple] = []
+        self.plain_flops = 0
+        self.counter = None      # the FLOP counter the reads run under
+
+    def clear(self) -> None:
+        self.reads.clear()
+        self.plain_flops = 0
 
     def global_read(self, q, k, v, heads, d, role=""):
         b, lq, _ = q.shape
@@ -91,49 +105,70 @@ class CountingOps:
                            rel_v is not None))
         return q.new_zeros((b, q.shape[1], v.shape[-1]))
 
+    def read(self, decl, *args):
+        shapes = tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                       for a in args)
+        self.reads.append((decl.name, decl.role, shapes, decl.work))
+        before = self.counter.get_total_flops() if self.counter else 0
+        out = decl.plain(*args)
+        if self.counter:
+            self.plain_flops += self.counter.get_total_flops() - before
+        return out
+
 
 def read_work(read) -> Tuple[float, float]:
-    """(flops, bytes) of one recorded read."""
+    """(flops, bytes) of one recorded read: the model's global and local
+    reads by global_work and local_work, a declared read (name, role,
+    shapes, work) by its own work function."""
     if read[0] == "global":
         _, _, b, lq, live, h, d, dv = read
         f, n = global_work(lq, live, h, d, dv)
         return b * f, b * n
-    _, _, b, (hgt, wid), h, d, dv, rv = read
-    return local_work(b, hgt, wid, h, d, dv, rv)
+    if read[0] == "local":
+        _, _, b, (hgt, wid), h, d, dv, rv = read
+        return local_work(b, hgt, wid, h, d, dv, rv)
+    _, _, shapes, work = read
+    return work(*shapes)
 
 
 @functools.lru_cache(maxsize=None)
 def frame_work(model_key: Tuple, layout: Tuple, size: Tuple[int, int],
-               kind: str, live_frames: int):
+               kind: str, live_frames: int, root=ROOT):
     """(flops of the whole frame, the attention reads it makes) for a
     frame of `kind` 'ref' (a video's first frame) or 'step' (a frame read
     against `live_frames` long-term frames), counted on 'meta'. model_key:
-    `model_key(cfg)`; layout: ((name, shape), ...) of the weights."""
+    `model_key(cfg)`; layout: ((name, shape), ...) of the weights; root:
+    the benchmark folder whose reference counts it (the cell's)."""
+    ref = reference.load(root)
     cfg = dict(model_key)
     params = {k: torch.empty(s, device="meta") for k, s in layout}
     ops = CountingOps()
-    model = Model(params, cfg, ops=ops)
-    stream = Stream(model, lt_gap=1 << 30)
+    model = ref.model.Model(params, cfg, ops=ops)
+    stream = ref.stream.Stream(model, lt_gap=1 << 30)
     img = torch.empty((1,) + tuple(size) + (3,), dtype=torch.uint8,
                       device="meta")
     mask = torch.empty((1,) + tuple(size), dtype=torch.int64, device="meta")
     with FlopCounterMode(display=False) as counter:
+        ops.counter = counter
         stream.reference_frame(img, mask, 1)
     if kind == "step":
         stream.lt = [{k: v.repeat(1, live_frames, 1) for k, v in layer.items()}
                      for layer in stream.lt]
-        ops.reads.clear()
+        ops.clear()
         with FlopCounterMode(display=False) as counter:
+            ops.counter = counter
             logits = stream.propagate(img)
             model.upsample(logits, size).argmax(dim=1)
             stream.write(mask)
     reads = list(ops.reads)
-    flops = counter.get_total_flops() + sum(read_work(r)[0] for r in reads)
+    flops = (counter.get_total_flops() - ops.plain_flops
+             + sum(read_work(r)[0] for r in reads))
     return float(flops), reads
 
 
 def op_bound_s(reads, role: str) -> float:
-    """The least seconds of the reads of `role` ('lt' or 'st')."""
+    """The least seconds of the reads of `role` ('lt', 'st', or a declared
+    read's)."""
     return sum(bound_s(*read_work(r)) for r in reads if r[1] == role)
 
 
@@ -152,7 +187,8 @@ def live_frames_of(engine: Dict, count: int) -> int:
     return count
 
 
-# the work functions that ops/*.json name: least seconds of a frame's reads
+# the work functions that ops/*.json name by a bare name: least seconds of
+# a frame's reads (a file's own is named "<file>.py:<function>", ops/)
 
 def local_window(reads) -> float:
     return op_bound_s(reads, "st")
