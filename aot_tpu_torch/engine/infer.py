@@ -21,7 +21,9 @@ import torch
 
 from aot_tpu_torch.engine import state as S
 from aot_tpu_torch.engine.engine import VOSEngine
-from aot_tpu_torch.ops.attention import set_attn_impl, set_attn_thresholds
+from aot_tpu_torch.models.encoders.swin import SwinTransformer
+from aot_tpu_torch.ops.attention import (load_serving_kernels, set_attn_impl,
+                                         set_attn_thresholds)
 from aot_tpu_torch.ops.image import (interpolate_bilinear, nearest_labels,
                                      upsample_argmax)
 from aot_tpu_torch.utils.tracing import span
@@ -105,7 +107,9 @@ def build_infer_engine(model, cfg, aggregation: str = "soft"
     """The eval engine from a Config (reference:
     networks/engines/__init__.py:5-21). Applies the config's attention
     knobs first, as aot_tpu/engine/infer.py:107-113 does: ATTN_IMPL and the
-    three ATTN_* thresholds (None keeps one), process-wide."""
+    three ATTN_* thresholds (None keeps one), process-wide. A model on a
+    card has the kernels its reads can launch built and loaded here
+    (`load_serving_kernels`), before the first frame."""
     set_attn_impl(cfg.get("ATTN_IMPL", "auto"))
     set_attn_thresholds(
         flash_min_keys_bf16=cfg.get("ATTN_FLASH_MIN_KEYS_BF16"),
@@ -122,6 +126,10 @@ def build_infer_engine(model, cfg, aggregation: str = "soft"
         max_mem_len_ratio=cfg.get("TEST_MAX_MEM_LEN_RATIO", -1.0),
         align_corners=cfg.MODEL_ALIGN_CORNERS,
     )
+    if isinstance(model, torch.nn.Module) and any(
+            p.is_cuda for p in model.parameters()):
+        load_serving_kernels(model.compute_dtype,
+                             swin=isinstance(model.encoder, SwinTransformer))
     return VOSInferEngine(eng, aggregation=aggregation)
 
 

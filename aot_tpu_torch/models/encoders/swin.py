@@ -8,8 +8,17 @@ Emits [x4 (128ch), x8 (256ch), x16 (512ch), x16 (512ch, the same map)]
 NCHW. Module names are the reference's (`patch_embed.proj`,
 `layers.<i>.blocks.<j>.attn.qkv`, `layers.<i>.downsample.reduction`,
 `norm<i>`). The relative position index and the shifted-window mask are
-recomputed, not stored: the reference checkpoint's copies of them are
-not loaded.
+recomputed once a device, not stored (not even as buffers, which a model
+built on 'meta' would leave uninitialised): the reference checkpoint's
+copies of them are not loaded.
+
+A block's attention takes the route of `ops.attention.window_route`: an
+fp32 card tensor in serving runs the qkv Linear over the image's own
+tokens, the window kernel (csrc/swin_window_attn.cu, the pad, roll and
+partition as its index arithmetic) and the output projection, three
+launches; everything else (the CPU, bf16, training) the pad, roll,
+partition and reverse below. Each block's attention is one `window_attn`
+span (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from aot_tpu_torch.models.layers import Conv2d, DropPath, LayerNorm, Linear
+from aot_tpu_torch.ops import attention
+from aot_tpu_torch.utils.tracing import span
 
 
 def relative_position_index(window: int) -> np.ndarray:
@@ -46,6 +57,18 @@ def shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> np.ndarray:
     win = win.transpose(0, 2, 1, 3).reshape(-1, window * window)
     return np.where(win[:, :, None] != win[:, None, :], -100.0,
                     0.0).astype(np.float32)
+
+
+@lru_cache(maxsize=32)
+def _relative_index_on(window: int, device: torch.device) -> torch.Tensor:
+    """relative_position_index(window), flat, on `device`: made here and
+    not kept as a buffer, so that a model built on 'meta' and moved with
+    to_empty (the benchmark's loading) holds no uninitialised index. Made
+    outside inference mode, so that a later training step may save it for
+    its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            relative_position_index(window).reshape(-1)).to(device)
 
 
 @lru_cache(maxsize=32)
@@ -76,13 +99,10 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int = 7):
         super().__init__()
         self.num_heads = num_heads
+        self.window = window
         self.scale = (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
-        self.register_buffer(
-            "relative_position_index",
-            torch.from_numpy(relative_position_index(window).reshape(-1)),
-            persistent=False)
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
@@ -96,7 +116,8 @@ class WindowAttention(nn.Module):
         # scores, bias, mask and softmax in fp32; P in v's dtype, P V
         # summed in fp32 (aot_tpu swin.py:90-101)
         attn = q.float() @ k.float().transpose(-2, -1)
-        bias = self.relative_position_bias_table[self.relative_position_index]
+        bias = self.relative_position_bias_table[
+            _relative_index_on(self.window, x.device)]
         attn = attn + bias.view(n, n, h).permute(2, 0, 1)[None]
         if mask is not None:
             nw = mask.shape[0]
@@ -137,10 +158,33 @@ class SwinBlock(nn.Module):
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, H*W, C)."""
+        y = self.norm1(x)
+        attn = self.attn
+        needs_grad = torch.is_grad_enabled() and (
+            y.requires_grad or any(p.requires_grad
+                                   for p in attn.parameters()))
+        with span("window_attn"):
+            if attention.window_read(y, needs_grad, num_heads=attn.num_heads,
+                                     size_2d=hw,
+                                     window=self.window) == "kernel":
+                y = attn.proj(attention.window_attention(
+                    attn.qkv(y), attn.qkv.bias,
+                    attn.relative_position_bias_table,
+                    num_heads=attn.num_heads, size_2d=hw, window=self.window,
+                    shift=self.shift))
+            else:
+                y = self._windowed(y, hw)
+        x = x + self.drop_path(y, generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
+
+    def _windowed(self, y: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+        """The plain path: y (B, H*W, C) after norm1, padded at the bottom
+        and right to window multiples, rolled, partitioned, attended (the
+        qkv product on the padded map), reversed, rolled back and cut."""
         hgt, wid = hw
-        b, l, c = x.shape
+        b, l, c = y.shape
         win, s = self.window, self.shift
-        y = self.norm1(x).view(b, hgt, wid, c)
+        y = y.view(b, hgt, wid, c)
         pad_b, pad_r = (win - hgt % win) % win, (win - wid % win) % win
         y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
         hp, wp = hgt + pad_b, wid + pad_r
@@ -152,9 +196,7 @@ class SwinBlock(nn.Module):
                            hp, wp)
         if s > 0:
             y = torch.roll(y, (s, s), (1, 2))
-        y = y[:, :hgt, :wid].reshape(b, l, c)
-        x = x + self.drop_path(y, generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
+        return y[:, :hgt, :wid].reshape(b, l, c)
 
 
 class PatchMerging(nn.Module):

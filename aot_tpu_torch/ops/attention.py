@@ -36,7 +36,16 @@ tensor at any size.
 Each read counts its route (utils/tracing.py): `attn.global.flash` or
 `attn.global.dense`, with the keys it covered under `<route>.keys` (the
 live length where it is a host int, else every key handed over: the
-engine hands over the LT ring's live prefix), and `attn.local.<route>`.
+engine hands over the LT ring's live prefix), `attn.local.<route>`, and a
+Swin block's window attention `attn.window.kernel` or `attn.window.plain`
+with its windows times heads (padded windows included) under
+`<route>.windows` (`window_read`).
+
+Swin's window attention (`window_route`): an fp32 CUDA tensor outside
+attn_training_context with no gradient asked for, under 'auto' or
+'pallas', takes the window kernel (ops/kernels/swin_window_attn.py,
+through `window_attention`); everything else the encoder's own plain path
+(models/encoders/swin.py).
 
 Layouts: sequences are (B, L, C).
 """
@@ -51,8 +60,10 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from aot_tpu_torch.ops.kernels import _build
 from aot_tpu_torch.ops.kernels import flash_attn as fa
 from aot_tpu_torch.ops.kernels import local_window_attn as lwa
+from aot_tpu_torch.ops.kernels import swin_window_attn as swa
 from aot_tpu_torch.utils import tracing
 
 NEG_INF = -1e30
@@ -109,6 +120,34 @@ def set_attn_thresholds(flash_min_keys_bf16=None, flash_min_keys_fp32=None,
         FLASH_MIN_KEYS = int(flash_min_keys_fp32)
     if dense_local_max_tokens is not None:
         DENSE_LOCAL_MAX_TOKENS = int(dense_local_max_tokens)
+
+
+# The csrc/ libraries that a served read of a CUDA tensor can launch, by
+# compute dtype: the local kernel and the flash forward
+_SERVING_LIBS = {
+    torch.float32: ("local_window_attn_tc", "flash_attn_fwd"),
+    torch.bfloat16: ("local_window_attn_bf16", "flash_attn_fwd_bf16"),
+}
+
+
+def load_serving_kernels(dtype: torch.dtype, swin: bool) -> Tuple[str, ...]:
+    """Build (nvcc, each source not built yet, all at once) and load the
+    libraries that serving a CUDA model computing in `dtype` can launch
+    under the dispatch mode, and the window kernel's for an fp32 Swin
+    encoder (`swin`); none under 'xla' and 'reference'. Returns their
+    names. The engine calls it when it is built on a card
+    (engine.infer.build_infer_engine), so that no read pays a build at its
+    first use, inside a video: the flash read first runs when a growing
+    LT ring passes FLASH_MIN_KEYS."""
+    if _ATTN_IMPL in ("xla", "reference"):
+        return ()
+    names = _SERVING_LIBS[dtype]
+    if swin and dtype == torch.float32:
+        names += ("swin_window_attn",)
+    _build.build(*names)
+    for name in names:
+        _build.load(name)
+    return names
 
 
 # max score-tensor elements before queries are chunked (~256 MB fp32)
@@ -423,6 +462,52 @@ def local_attention(
         return lwa.local_window_attention_wide_cuda(q, k, v, rel_bias, rel_v,
                                                     **kw)
     return lwa.local_window_attention_cuda(q, k, v, rel_bias, rel_v, **kw)
+
+
+# --- Swin's window attention ----------------------------------------------
+
+
+def window_route(device_type: str, dtype: torch.dtype,
+                 needs_grad: bool) -> str:
+    """Which implementation serves a Swin block's (shifted-)window
+    attention: 'kernel' (csrc/swin_window_attn.cu through
+    `window_attention`) for an fp32 CUDA tensor outside
+    attn_training_context with no gradient asked for (the kernel is
+    forward-only), under ATTN_IMPL 'auto' or 'pallas'; else 'plain' (the
+    encoder's pad/roll/partition path: the CPU, bf16, training, a gradient,
+    and 'xla', 'reference' and 'window')."""
+    if (_ATTN_IMPL in ("auto", "pallas") and device_type == "cuda"
+            and dtype == torch.float32 and not needs_grad
+            and not in_training()):
+        return "kernel"
+    return "plain"
+
+
+def window_read(x: torch.Tensor, needs_grad: bool, *, num_heads: int,
+                size_2d: Tuple[int, int], window: int) -> str:
+    """The route of one block's window attention over x (B, H*W, C),
+    counted: `attn.window.<route>` and its windows times heads, padded
+    windows included, under `attn.window.<route>.windows`."""
+    route = window_route(x.device.type, x.dtype, needs_grad)
+    hgt, wid = size_2d
+    windows = x.shape[0] * -(-hgt // window) * -(-wid // window)
+    tracing.count("attn.window." + route)
+    tracing.count(f"attn.window.{route}.windows", windows * num_heads)
+    return route
+
+
+def window_attention(qkv: torch.Tensor, qkv_bias: torch.Tensor,
+                     table: torch.Tensor, *, num_heads: int,
+                     size_2d: Tuple[int, int], window: int,
+                     shift: int) -> torch.Tensor:
+    """The kernel route's read: from the qkv Linear's output over the
+    image's own tokens, qkv (B, H*W, 3C), its bias and the block's relative
+    position bias table ((2 window - 1)^2, heads) to the output
+    projection's input (B, H*W, C): the window kernel's launch (which
+    raises on an input it does not take)."""
+    return swa.swin_window_attention_cuda(
+        qkv, qkv_bias, table, num_heads=num_heads, size_2d=tuple(size_2d),
+        window=window, shift=shift)
 
 
 # --- gated propagation (DeAOT) ---------------------------------------------

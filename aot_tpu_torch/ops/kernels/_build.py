@@ -5,10 +5,12 @@ Each library is compiled at first use with nvcc for sm_90a into
 `build/aot_tpu_torch/` at the repository root, keyed by a hash of its
 source, the csrc/ headers it includes and the flags, so a changed source
 or header rebuilds what includes it and
-an unchanged one loads at once. Nothing here runs at import time: the CPU
-tests import the package on machines without nvcc. Each nvcc build counts
-`build.<name>` and its seconds `build.<name>.s`, each library loaded
-`load.<name>` (utils/tracing.py counters).
+an unchanged one loads at once. An engine built on a card builds and
+loads the libraries its reads can launch then, before its first frame
+(ops.attention.load_serving_kernels). Nothing here runs at import time:
+the CPU tests import the package on machines without nvcc. Each nvcc
+build counts `build.<name>` and its seconds `build.<name>.s`, each library
+loaded `load.<name>` (utils/tracing.py counters).
 """
 
 from __future__ import annotations

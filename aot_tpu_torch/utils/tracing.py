@@ -2,9 +2,10 @@
 stage, on the host's wall clock.
 
 Spans mark the layer boundaries of a frame (`infer.step` and
-`infer.add_reference_frame` are the roots; `encode`, `lstt`,
-`lstt.block<i>`, `lt_read`, `st_read`, `decode`, `upsample_argmax`,
-`update_memory`, `lt_write`, and `grow_lt` as a root of its own). They are
+`infer.add_reference_frame` are the roots; `encode`, with `window_attn`
+under it for each Swin block's attention, `lstt`, `lstt.block<i>`,
+`lt_read`, `st_read`, `decode`, `upsample_argmax`, `update_memory`,
+`lt_write`, and `grow_lt` as a root of its own). They are
 off by default: `span(name)` then returns a shared object whose `with`
 does nothing, so a span costs one flag check. While on, each span appends
 one record to an in-memory list; `take_spans` hands the records over and
@@ -16,12 +17,17 @@ snapshot by `counters`. The names in use:
 
   launch.<kernel>               calls of a CUDA kernel wrapper:
                                 local_window_attn[_wide][_bf16],
-                                flash_attn_fwd[_bf16], flash_attn_bwd[_bf16]
+                                flash_attn_fwd[_bf16], flash_attn_bwd[_bf16],
+                                swin_window_attn
   attn.global.<route>           global reads by route: flash, dense
   attn.global.<route>.keys      the keys those reads covered (the live
                                 length where it is a host int)
   attn.local.<route>            local reads by route: flat, wide, plain,
                                 window
+  attn.window.<route>           Swin blocks' window attention by route:
+                                kernel, plain
+  attn.window.<route>.windows   their windows times heads, padded windows
+                                included
   engine.lt_write               writes of the long-term ring
   engine.lt_grow                grows of the long-term ring
   engine.lt_grow_bytes          the bytes those grows allocated

@@ -21,9 +21,9 @@ fifth the flash backward's kernels one by one at phase 9's and 24's shapes
 (`profile_bwd`); the sixth the bf16 forward kernels (local window and
 flash) one by one at phase 19's shapes (`profile_fwd`).
 
-Phases (2, 3, 8, 9, 19, 23 and 24, the kernel checks, run first, then 4
-to 7, then 10 to 18, then 20 to 22, then 25 to 33); any failure raises and
-the exit code is non-zero:
+Phases (2, 3, 8, 9, 19, 23, 24 and 34, the kernel checks, run first, then
+4 to 7, then 10 to 18, then 20 to 22, then 25 to 33); any failure raises
+and the exit code is non-zero:
   0. refuse to run without a card; print the card's name and power limit
      (nvidia-smi) and the torch/CUDA versions; TF32 off for matmuls and
      convolutions.
@@ -141,7 +141,9 @@ the exit code is non-zero:
      MODEL_ALIGN_CORNERS=False) at 464x464, the evaluator's snap of the
      465x465 frames for that mode (a 29x29 grid, asserted: 841 tokens, the
      identity bank at kernel 16 and padding 0), as 6; the flash switch at
-     step 46 (10 LT frames of 841 tokens; asserted).
+     step 46 (10 LT frames of 841 tokens; asserted), and the window kernel
+     (phase 34) on each of Swin-B's 22 blocks a frame (asserted; also in
+     18's two Swin variants at fp32, never at bf16).
  17. as 7, for SwinB_DeAOTL.
  18. each of the 14 model variants (configs/models.py) on the card: built
      from the seed, its state dict loaded back strictly, the reference
@@ -283,6 +285,18 @@ the exit code is non-zero:
      plain time, bound and library time at its main shape), the card line,
      and last the result line {"ok": true, "device": {...}}; every kernel
      must have been launched by a main path.
+ 34. (run with the kernel checks, after 24) Swin's window kernel
+     (csrc/swin_window_attn.cu) with the block's qkv and output
+     projections against the block's plain path (pad, roll, partition,
+     reverse; max abs error <= 1e-4) at Swin-B's three stage maps at DAVIS
+     480p (120x212, 60x106, 30x53: 480x848 frames) and at 464x464
+     (116x116, 58x58, 29x29), shifted and unshifted, B = 1 and 2; at the
+     480p stages, shifted, the kernel and its plain version
+     (swin_window_attention_plain) on the same qkv timed as 3, beside
+     F.scaled_dot_product_attention over the windows already partitioned
+     with the bias and mask as a float mask, and the bound; and, on a line
+     of their own, the block's kernel route (qkv, kernel, proj) against
+     its plain path (pad, roll, partition, qkv, read, proj, reverse).
 """
 
 from __future__ import annotations
@@ -377,20 +391,37 @@ KERNELS = {
     "flash_attn_bwd_bf16": ("launch.flash_attn_bwd_bf16",
                             "aot_tpu/ops/pallas/flash_attn_vjp.py:267",
                             "flash_attn_bwd"),
+    # Swin's window attention (fp32 serving), which replaces no TPU kernel:
+    # the JAX package leaves it to XLA
+    "swin_window_attn": ("launch.swin_window_attn",
+                         "none (aot_tpu/models/encoders/swin.py, XLA)",
+                         "swin_window_attn"),
 }
 
 
 def expected_launches(kernels, frames: int, flash_reads: int, layers: int,
-                      bf16: bool = False, wide: bool = False):
+                      bf16: bool = False, wide: bool = False,
+                      window_blocks: int = 0):
     """Launches by kernel name of `frames` LSTT forwards (one local read a
     block each, on the wide or the flat route) with `flash_reads` LT reads
-    on the flash kernel, at fp32 or bf16."""
+    on the flash kernel, at fp32 or bf16, and of as many encoder passes
+    with `window_blocks` Swin blocks (the window kernel at fp32 only)."""
     want = {name: 0 for name in kernels}
     sfx = "_bf16" if bf16 else ""
     want[("local_window_attn_wide" if wide else "local_window_attn")
          + sfx] = frames * layers
     want["flash_attn_fwd" + sfx] = flash_reads * layers
+    if not bf16:
+        want["swin_window_attn"] = frames * window_blocks
     return want
+
+
+def swin_blocks(model) -> int:
+    """The Swin blocks of the model's encoder (22 for Swin-B), else 0."""
+    layers = getattr(model.encoder, "layers", None)
+    if not hasattr(model.encoder, "patch_embed") or layers is None:
+        return 0
+    return sum(len(layer.blocks) for layer in layers)
 
 
 def kernel_counters():
@@ -924,6 +955,141 @@ def time_kernels(lwa, fa, device, card: str):
     return times
 
 
+# Swin-B's window reads (phase 34): (label, token grid, channels, heads) of
+# its three stages at DAVIS 480p (480x848 frames, MODEL_ALIGN_CORNERS=False)
+# and at phase 16's 464x464
+WINDOW_SHAPES = (("480p stage 1", (120, 212), 128, 4),
+                 ("480p stage 2", (60, 106), 256, 8),
+                 ("480p stage 3", (30, 53), 512, 16),
+                 ("464 stage 1", (116, 116), 128, 4),
+                 ("464 stage 2", (58, 58), 256, 8),
+                 ("464 stage 3", (29, 29), 512, 16))
+
+
+def window_bound(b, hgt, wid, heads, d=32, window=7):
+    """A Swin window read: per head and in-image query 4 window^2 d FLOPs;
+    the in-image tokens' q, k, v and out once each and the bias table."""
+    flops = 4.0 * window * window * d * heads * b * hgt * wid
+    nbytes = 4.0 * (4 * b * hgt * wid * heads * d
+                    + (2 * window - 1) ** 2 * heads)
+    return bound(flops, nbytes)
+
+
+def seeded_window_block(dim: int, heads: int, shift: int, device):
+    """A Swin block (models/encoders/swin.py) with weights drawn from
+    SEED: matrices at variance 1 / fan-in, vectors at 0.3."""
+    from aot_tpu_torch.models.encoders.swin import SwinBlock
+
+    blk = SwinBlock(dim, heads, 7, shift).to(device).eval()
+    g = torch.Generator(device=device).manual_seed(SEED + shift)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=device)
+                    * (p.shape[-1] ** -0.5 if p.ndim > 1 else 0.3))
+    return blk
+
+
+def check_window_kernel(device, card: str):
+    """Phase 34: the window kernel (csrc/swin_window_attn.cu, through
+    ops.attention.window_attention) with the block's qkv and output
+    projections against the block's plain path (pad, roll, partition,
+    the qkv product on the padded map, reverse) at WINDOW_SHAPES, shifted
+    and unshifted, B = 1 and 2 (max abs error <= KERNEL_TOL); then at the
+    480p stages, shifted, B=1, the kernel and its plain version
+    (swin_window_attention_plain, the same function) on the same qkv
+    timed as phase 3, beside F.scaled_dot_product_attention over the
+    windows already partitioned with the bias and mask as a float mask
+    (the library yardstick of the read alone) and the read's bound; and
+    the block's kernel route (qkv, kernel, proj) against its plain path.
+    Returns (max error, the JSON line's times at stage 3: its 18 blocks
+    take most of the encoder's windows)."""
+    import torch.nn.functional as F
+
+    from aot_tpu_torch.models.encoders import swin
+    from aot_tpu_torch.ops import attention
+    from aot_tpu_torch.ops.kernels import swin_window_attn as swa
+
+    worst, times = 0.0, None
+    for label, (hgt, wid), dim, heads in WINDOW_SHAPES:
+        for shift in (0, 3):
+            blk = seeded_window_block(dim, heads, shift, device)
+            a = blk.attn
+            for b in (1, 2):
+                x = torch.randn(b, hgt * wid, dim, device=device,
+                                generator=torch.Generator(device=device)
+                                .manual_seed(SEED + b))
+                with torch.inference_mode():
+                    y = blk.norm1(x)
+                    qkv = a.qkv(y)
+
+                    def read():
+                        return attention.window_attention(
+                            qkv, a.qkv.bias, a.relative_position_bias_table,
+                            num_heads=heads, size_2d=(hgt, wid), window=7,
+                            shift=shift)
+
+                    want = blk._windowed(y, (hgt, wid))
+                    got = a.proj(read())
+                    err = (got - want).abs().max().item()
+                    rel = err / want.abs().max().item()
+                    print(f"phase 34: swin_window_attn {label} {hgt}x{wid} "
+                          f"C={dim} h={heads} shift={shift} B={b}: max abs "
+                          f"err vs the plain path {err:.3e} ({rel:.2e} of "
+                          f"its largest entry)", flush=True)
+                    if not err <= KERNEL_TOL:
+                        raise AssertionError(f"phase 34 {label}: {err}")
+                    worst = max(worst, err)
+                    if b != 1 or shift == 0 or not label.startswith("480p"):
+                        continue
+                    # the library yardstick: the read alone over windows
+                    # already partitioned, bias and mask as a float mask
+                    hp, wp = -(-hgt // 7) * 7, -(-wid // 7) * 7
+                    pad = F.pad(y.view(1, hgt, wid, dim),
+                                (0, 0, 0, wp - wid, 0, hp - hgt))
+                    win = swin.window_partition(
+                        torch.roll(pad, (-shift, -shift), (1, 2)), 7)
+                    q, k, v = a.qkv(win).view(-1, 49, 3, heads, 32).permute(
+                        2, 0, 3, 1, 4)
+                    bias = a.relative_position_bias_table[
+                        swin._relative_index_on(7, device)].view(
+                            49, 49, heads).permute(2, 0, 1)
+                    mask = torch.from_numpy(swin.shift_attn_mask(
+                        hp, wp, 7, shift)).to(device)
+                    dense = (bias[None] + mask[:, None]).contiguous()
+                    t = time_fns({
+                        "plain": lambda: swa.swin_window_attention_plain(
+                            qkv, a.qkv.bias, a.relative_position_bias_table,
+                            num_heads=heads, size_2d=(hgt, wid), window=7,
+                            shift=shift),
+                        "kernel": read,
+                        "library": lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=dense),
+                        "route": lambda: a.proj(attention.window_attention(
+                            a.qkv(y), a.qkv.bias,
+                            a.relative_position_bias_table, num_heads=heads,
+                            size_2d=(hgt, wid), window=7, shift=shift)),
+                        "block plain": lambda: blk._windowed(y, (hgt, wid))})
+                    b_ms, b_by = window_bound(1, hgt, wid, heads)
+                    print(f"phase 34: swin_window_attn {label} {hgt}x{wid} "
+                          f"h={heads} shift 3 B=1: kernel {t['kernel']:.4f} "
+                          f"ms, its plain version on the same qkv "
+                          f"{t['plain']:.4f} ms, F.scaled_dot_product_"
+                          f"attention over partitioned windows with a float "
+                          f"bias mask ({sdpa_backend(q, k, v, dense)}) "
+                          f"{t['library']:.4f} ms; bound {b_ms:.4f} ms "
+                          f"({b_by}) ({card})", flush=True)
+                    print(f"phase 34: Swin block attention {label} "
+                          f"{hgt}x{wid} h={heads} shift 3 B=1: kernel route "
+                          f"(qkv, kernel, proj) {t['route']:.4f} ms, plain "
+                          f"path (pad, roll, partition, qkv, read, proj, "
+                          f"reverse) {t['block plain']:.4f} ms ({card})",
+                          flush=True)
+                    if label == "480p stage 3":
+                        times = (t["kernel"], t["plain"], t["library"],
+                                 (b_ms, b_by))
+    return worst, times
+
+
 def check_step_outputs(pred, logits, size: int):
     grid = (size - 1) // 4 + 1    # the decoder's 4x map: 117 at 465, 116 at 464
     if tuple(pred.shape) != (1, size, size):
@@ -1049,7 +1215,8 @@ def drive(name, cfg, device, video, mask, kernels, card: str, phase: int,
     peak = torch.cuda.max_memory_allocated() / 2**20
     bf16 = model.compute_dtype == torch.bfloat16
     want = expected_launches(kernels, STEPS + 1, sum(flash_steps),
-                             cfg.MODEL_LSTT_NUM, bf16)
+                             cfg.MODEL_LSTT_NUM, bf16,
+                             window_blocks=swin_blocks(model))
     print(f"phase {phase}: {name} kernel launches in the main path: "
           f"{launches} (expected from the LT schedule: {want})", flush=True)
     if launches != want:
@@ -1134,7 +1301,8 @@ def run_variants(kernels, device, card: str, video, mask,
         layers = cfg.MODEL_LSTT_NUM
         want = expected_launches(kernels, VARIANT_STEPS + 1,
                                  sum(flash_steps), layers,
-                                 dtype == "bfloat16")
+                                 dtype == "bfloat16",
+                                 window_blocks=swin_blocks(model))
         if launches != want or grid != (grid_side(size),) * 2:
             raise AssertionError(f"{name}: launches {launches} != {want} "
                                  f"or grid {grid}")
@@ -3651,6 +3819,7 @@ def main() -> int:
     from aot_tpu_torch.ops.kernels import flash_attn as fa
     from aot_tpu_torch.ops.kernels import flash_attn_bwd as fab
     from aot_tpu_torch.ops.kernels import local_window_attn as lwa
+    from aot_tpu_torch.ops.kernels import swin_window_attn as swa
 
     kernels = kernel_counters()
     sources = list(dict.fromkeys(src for *_, src in KERNELS.values()))
@@ -3685,6 +3854,7 @@ def main() -> int:
     lwa._bf16_lib()
     fa._bf16_lib()
     fab._lib()
+    swa._lib()
     print(f"phase 1: built {', '.join(os.path.relpath(s) for s in sos)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print_build_logs(sources)
@@ -3699,7 +3869,9 @@ def main() -> int:
     times.update(bf16_times)
     max_err["flash_attn_bwd_bf16"] = check_bf16_bwd(fa, fab, device)
     times["flash_attn_bwd_bf16"] = time_bf16_bwd(fa, fab, device, card)
-    print(f"phases 1-3, 8, 9, 19, 23, 24 done at "
+    (max_err["swin_window_attn"],
+     times["swin_window_attn"]) = check_window_kernel(device, card)
+    print(f"phases 1-3, 8, 9, 19, 23, 24, 34 done at "
           f"{time.perf_counter() - start:.1f} s", flush=True)
 
     # phases 4-7
