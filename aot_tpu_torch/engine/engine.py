@@ -15,9 +15,19 @@ package, both exact:
     prefix of the LT ring (masked keys carry exactly zero weight, so
     dropping them changes nothing).
 
+The image encoder replays from a CUDA graph (engine/graphs.py) where the
+call can observe that nothing needs it eager: the input on a card, no
+gradient asked for, the model in eval mode. A graph
+is captured once an input key (shape, dtype, device, and the attention
+implementation and TF32 settings that pick its kernels), at most
+graphs.MAX_GRAPHS an engine, and replayed by one launch a frame in place
+of the encoder's few hundred; the kernels it replays are the eager
+path's. Training and the CPU run the encoder eagerly.
+
 Spans (utils/tracing.py): `encode`, `update_memory` with `lt_write` inside
 it when the LT ring is written, and `grow_lt`; counters `engine.lt_write`,
-`engine.lt_grow` and `engine.lt_grow_bytes`.
+`engine.lt_grow` and `engine.lt_grow_bytes`, and `encode.graph.replay`,
+`.capture`, `.eager` and `.pool_bytes`.
 """
 
 from __future__ import annotations
@@ -29,7 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from aot_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+from aot_tpu_torch.engine import graphs
 from aot_tpu_torch.engine import state as S
+from aot_tpu_torch.ops import attention
 from aot_tpu_torch.ops.image import interpolate_bilinear
 from aot_tpu_torch.utils import tracing
 from aot_tpu_torch.utils.tracing import span
@@ -57,6 +69,7 @@ class VOSEngine:
         self.max_mem_len_ratio = max_mem_len_ratio
         self.align_corners = align_corners
         self._consts: Dict[tuple, torch.Tensor] = {}
+        self._encoder_graphs = graphs.GraphCache("encode.graph")
 
     def _const(self, key: tuple, make) -> torch.Tensor:
         if key not in self._consts:
@@ -69,17 +82,41 @@ class VOSEngine:
 
     def encode_image(self, img: torch.Tensor):
         """img: (B, H, W, 3), normalised float or raw uint8 (normalised on
-        the device). Returns the encoder maps, NCHW."""
+        the device). Returns the encoder maps, NCHW.
+
+        On a card with no gradient asked for and the model in eval mode,
+        the encode replays this engine's CUDA graph for the input's key
+        (captured at the key's first call: a warm-up and a capture): the
+        maps returned are the graph's static outputs, valid until this
+        engine's next encode_image (of any key) overwrites them. What is
+        kept past a frame (the LT and ST rings) is copied out of them; a
+        state's `shortcuts` are these maps, and each frame replaces them
+        before they are read. Every other call runs eagerly and returns
+        fresh tensors. Counters: one of `encode.graph.replay`, `.capture`
+        or `.eager` a call, and the kernels' own counts as under eager."""
         with span("encode"):
-            if img.dtype == torch.uint8:
-                dev = img.device
-                mean = self._const(("mean", dev), lambda: torch.tensor(
-                    IMAGENET_MEAN, dtype=torch.float32, device=dev))
-                std = self._const(("std", dev), lambda: torch.tensor(
-                    IMAGENET_STD, dtype=torch.float32, device=dev))
-                img = (img.float() / 255.0 - mean) / std
-            return self.model.encode_image(
-                img.permute(0, 3, 1, 2).contiguous())
+            return self._encoder_graphs.run(self._graph_key(img), img,
+                                            self._encode)
+
+    def _encode(self, img: torch.Tensor):
+        if img.dtype == torch.uint8:
+            dev = img.device
+            mean = self._const(("mean", dev), lambda: torch.tensor(
+                IMAGENET_MEAN, dtype=torch.float32, device=dev))
+            std = self._const(("std", dev), lambda: torch.tensor(
+                IMAGENET_STD, dtype=torch.float32, device=dev))
+            img = (img.float() / 255.0 - mean) / std
+        return self.model.encode_image(img.permute(0, 3, 1, 2).contiguous())
+
+    def _graph_key(self, img: torch.Tensor):
+        """The encoder graph's key for img, or None where the encode runs
+        eagerly."""
+        if (not img.is_cuda or torch.is_grad_enabled()
+                or getattr(self.model, "training", False)):
+            return None
+        return (tuple(img.shape), img.dtype, img.device,
+                attention.attn_impl(), torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
 
     # --- state construction ---------------------------------------------
     def _st_rings(self, mems):

@@ -31,9 +31,22 @@ snapshot by `counters`. The names in use:
   engine.lt_write               writes of the long-term ring
   engine.lt_grow                grows of the long-term ring
   engine.lt_grow_bytes          the bytes those grows allocated
+  encode.graph.replay           image encodes replayed from a CUDA graph
+  encode.graph.capture          image encodes that captured one
+  encode.graph.eager            image encodes run eagerly (ineligible, or
+                                the engine keeps no graph); each encode
+                                counts one of the three
+  encode.graph.pool_bytes       the encoder graphs' memory pool's growth at
+                                each capture (their sum: the pool's
+                                reserved bytes)
   build.<source>                nvcc builds of csrc/<source>.cu
   build.<source>.s              their seconds
   load.<source>                 libraries loaded
+
+A region's counts can be kept apart from the counters (`counted_apart`)
+and added later (`count_all`): a CUDA graph's capture launches nothing,
+so the engine keeps what its capture counted and adds it at each replay,
+and the counters read as if every encode ran eagerly.
 
 Both are process-wide, as a profiler is: the span flag is one flag for
 every thread, and the stack of open spans is per thread (a checkpointed
@@ -47,6 +60,7 @@ one timeline (`chrome_events`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 from typing import Dict, List, NamedTuple, Optional
@@ -140,6 +154,25 @@ def take_spans() -> List[SpanRecord]:
 
 def count(name: str, n=1) -> None:
     _COUNTS[name] += n
+
+
+def count_all(counts: Dict[str, float]) -> None:
+    """Add every count of `counts` (a `counted_apart` result)."""
+    for name, n in counts.items():
+        _COUNTS[name] += n
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Counts made inside the block go to the dict it yields and not to
+    the counters (every thread's, while the block is open)."""
+    global _COUNTS
+    kept, apart = _COUNTS, collections.defaultdict(int)
+    _COUNTS = apart
+    try:
+        yield apart
+    finally:
+        _COUNTS = kept
 
 
 def counters() -> Dict[str, float]:

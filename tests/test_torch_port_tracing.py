@@ -1,7 +1,8 @@
 """The port's spans and counters (aot_tpu_torch/utils/tracing.py).
 
 The recorder alone: nothing is recorded while spans are off, counters
-count either way; nesting, parent indices, frame ids and host self time;
+count either way, and a region's counts can be kept apart and added back;
+nesting, parent indices, frame ids and host self time;
 one stack of open spans per thread; `take_spans` clears; the Chrome trace
 events. Then a tiny AOTT and a tiny DeAOTL serving step on the CPU: the
 span tree each frame makes, outputs bit-identical with spans on and off,
@@ -58,6 +59,18 @@ def test_spans_off_record_nothing_and_counters_still_count():
     assert snap["x"] == 5                       # a snapshot, not a view
     tracing.reset_counters()
     assert tracing.counters() == {}
+
+
+def test_counted_apart_and_count_all():
+    tracing.count("x")
+    with tracing.counted_apart() as apart:
+        tracing.count("x", 2)
+        tracing.count("y")
+    assert apart == {"x": 2, "y": 1}
+    assert tracing.counters() == {"x": 1}
+    tracing.count_all(apart)
+    tracing.count_all(apart)
+    assert tracing.counters() == {"x": 5, "y": 2}
 
 
 def test_nesting_parents_frames_and_self_time():
@@ -246,7 +259,8 @@ def test_serving_step_span_tree_and_bit_identical_outputs(model_name, layers):
 def test_serving_step_counts_routes_and_live_keys(model_name, layers):
     """On the CPU every global read is dense and every local read plain;
     each block reads its self-attention's HW keys and the live prefix of
-    the LT ring; the ring's writes and grows are counted, and no kernel."""
+    the LT ring; the ring's writes and grows are counted, each frame's
+    encode as eager, and no kernel."""
     over = dict(TEST_LONG_TERM_MEM_GAP=2, TEST_LONG_TERM_MEM_CAP=1,
                 TEST_LONG_TERM_MEM_POLICY="grow")
     cfg, eng = serving(model_name, **over)
@@ -254,11 +268,12 @@ def test_serving_step_counts_routes_and_live_keys(model_name, layers):
     state = eng.add_reference_frame(imgs[0], mask, 2)
     shadow = eng.make_shadow()
     shadow.add_ref(0)
-    # the reference frame: self-attention and the frame's own memory
+    # the reference frame: self-attention and the frame's own memory; the
+    # CPU encodes eagerly
     assert tracing.counters() == {
         "attn.global.dense": 2 * layers,
         "attn.global.dense.keys": 2 * layers * HW,
-        "attn.local.plain": layers}
+        "attn.local.plain": layers, "encode.graph.eager": 1}
     for t in range(1, len(imgs)):
         tracing.reset_counters()
         grown = False
@@ -272,7 +287,7 @@ def test_serving_step_counts_routes_and_live_keys(model_name, layers):
         got = tracing.counters()
         want = {"attn.global.dense": 2 * layers,
                 "attn.global.dense.keys": layers * (HW + live),
-                "attn.local.plain": layers}
+                "attn.local.plain": layers, "encode.graph.eager": 1}
         if writes:
             want["engine.lt_write"] = 1
         if grown:
