@@ -21,7 +21,6 @@ import torch
 
 from aot_tpu_torch.engine import state as S
 from aot_tpu_torch.engine.engine import VOSEngine
-from aot_tpu_torch.models.encoders.swin import SwinTransformer
 from aot_tpu_torch.ops.attention import (load_serving_kernels, set_attn_impl,
                                          set_attn_thresholds)
 from aot_tpu_torch.ops.image import (interpolate_bilinear, nearest_labels,
@@ -107,14 +106,16 @@ def build_infer_engine(model, cfg, aggregation: str = "soft"
     """The eval engine from a Config (reference:
     networks/engines/__init__.py:5-21). Applies the config's attention
     knobs first, as aot_tpu/engine/infer.py:107-113 does: ATTN_IMPL and the
-    three ATTN_* thresholds (None keeps one), process-wide. A model on a
-    card has the kernels its reads can launch built and loaded here
-    (`load_serving_kernels`), before the first frame."""
+    two ATTN_FLASH_MIN_KEYS_* thresholds (None keeps one), process-wide.
+    The local crossover key is the JAX package's alone: the port serves
+    every dilation-1 local read of a card tensor with one kernel. A model on
+    a card has the kernels its reads can launch built and loaded here
+    (`load_serving_kernels`, told by the model whether it makes Swin window
+    reads), before the first frame."""
     set_attn_impl(cfg.get("ATTN_IMPL", "auto"))
     set_attn_thresholds(
         flash_min_keys_bf16=cfg.get("ATTN_FLASH_MIN_KEYS_BF16"),
-        flash_min_keys_fp32=cfg.get("ATTN_FLASH_MIN_KEYS_FP32"),
-        dense_local_max_tokens=cfg.get("ATTN_DENSE_LOCAL_MAX_TOKENS"))
+        flash_min_keys_fp32=cfg.get("ATTN_FLASH_MIN_KEYS_FP32"))
     eng = VOSEngine(
         model,
         max_obj_num=cfg.MODEL_MAX_OBJ_NUM,
@@ -129,7 +130,7 @@ def build_infer_engine(model, cfg, aggregation: str = "soft"
     if isinstance(model, torch.nn.Module) and any(
             p.is_cuda for p in model.parameters()):
         load_serving_kernels(model.compute_dtype,
-                             swin=isinstance(model.encoder, SwinTransformer))
+                             swin=model.swin_window_reads)
     return VOSInferEngine(eng, aggregation=aggregation)
 
 

@@ -33,6 +33,7 @@ from torch import nn
 
 from aot_tpu_torch.models.decoders import FPNSegmentationHead
 from aot_tpu_torch.models.encoders import build_encoder
+from aot_tpu_torch.models.encoders.swin import SwinTransformer
 from aot_tpu_torch.models.layers import (Conv2d, LayerNorm, dropout,
                                         seq_from_2d, seq_to_2d)
 from aot_tpu_torch.models.lstt import DualBranchGPM, LongShortTermTransformer
@@ -77,6 +78,13 @@ class AOT(nn.Module):
         self.patch_wise_id_bank = Conv2d(
             max_obj_num + 1, emb_dim, ks, stride=16,
             padding=8 if align_corners else 0)
+
+    @property
+    def swin_window_reads(self) -> bool:
+        """Whether the encoder makes Swin window reads (ops.attention.
+        window_read), for which serving on a card loads the window kernel
+        (ops.attention.load_serving_kernels)."""
+        return isinstance(self.encoder, SwinTransformer)
 
     # --- hooks overridden by DeAOT ---
     def _make_lstt(self, lstt_num, emb_dim, self_heads, att_heads,

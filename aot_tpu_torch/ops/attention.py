@@ -5,11 +5,10 @@ live lengths, top-k filtering and the eval-time memory-length rescale;
 dilated local-window attention with relative key/value biases.
 
 Dispatch is by the tensor's device, not by a global backend flag: the local
-attention of a CUDA tensor runs the hand-written local-window kernel
-(ops/kernels/local_window_attn.py), through the flat route's wrapper up to
-DENSE_LOCAL_MAX_TOKENS query tokens and the wide route's above, as the JAX
-package switches between its two kernels (`local_route`); a CPU tensor its
-plain PyTorch version.
+attention of a CUDA tensor at dilation 1 runs the hand-written local-window
+kernel (ops/kernels/local_window_attn.py) at every grid size, where the JAX
+package switches between two TPU kernels at 2,500 query tokens
+(`local_route`); a CPU tensor its plain PyTorch version.
 Global attention over a long live memory (`use_flash`) goes to the flash
 kernel (ops/kernels/flash_attn.py) on a CUDA tensor and to its plain
 version on a CPU tensor; below that it is plain PyTorch on both, as the JAX
@@ -23,9 +22,11 @@ autograd differentiates.
 The knobs are the JAX package's (aot_tpu/ops/attention.py:72-104,
 :305-306), with "the TPU" read as "a CUDA tensor": `set_attn_impl`
 ('auto', 'xla', 'reference', 'window', 'pallas'; build_infer_engine applies
-the config's ATTN_IMPL) and `set_attn_thresholds` (the ATTN_* config keys),
-whose defaults the AOT_TPU_FLASH_MIN_KEYS_BF16, AOT_TPU_FLASH_MIN_KEYS_FP32
-and AOT_TPU_DENSE_LOCAL_MAX_TOKENS environment variables set at import.
+the config's ATTN_IMPL) and `set_attn_thresholds` (the ATTN_FLASH_MIN_KEYS_*
+config keys), whose defaults the AOT_TPU_FLASH_MIN_KEYS_BF16 and
+AOT_TPU_FLASH_MIN_KEYS_FP32 environment variables set at import. The JAX
+package's third threshold, its crossover between two local kernels, has no
+counterpart: only the JAX package reads that config key.
 'auto' is the routing above. 'xla' and 'reference' never take the flash
 path, in training too, and serve local reads with the plain version (no
 kernel launch on any device); 'window' serves local reads with
@@ -78,18 +79,6 @@ NEG_INF = -1e30
 FLASH_MIN_KEYS = int(os.environ.get("AOT_TPU_FLASH_MIN_KEYS_FP32", 8192))
 FLASH_MIN_KEYS_BF16 = int(os.environ.get("AOT_TPU_FLASH_MIN_KEYS_BF16", 4096))
 
-# Query tokens above which a dilation-1 local read takes the wide route:
-# the JAX package's crossover between its flat and wide kernels,
-# aot_tpu/ops/attention.py:305 _DENSE_LOCAL_MAX_TOKENS = 2500, a TPU v5e
-# measurement. On the H100 both routes launch the same kernel, each with
-# its own wrapper and launch count (so a run shows which grids went where)
-# and the launch plan of its grid; the split is kept until a measured
-# threshold replaces it (ROADMAP). 2,442 tokens (YouTube-VOS 720p at the
-# default resolution) stay on the flat route; 3,268 (720p at
-# --max_resolution 720) and 7,232 (DAVIS 1080p) take the wide one.
-DENSE_LOCAL_MAX_TOKENS = int(os.environ.get("AOT_TPU_DENSE_LOCAL_MAX_TOKENS",
-                                            2500))
-
 # The dispatch mode (set_attn_impl; the config's ATTN_IMPL)
 ATTN_IMPLS = ("auto", "xla", "reference", "window", "pallas")
 _ATTN_IMPL = "auto"
@@ -109,17 +98,15 @@ def attn_impl() -> str:
     return _ATTN_IMPL
 
 
-def set_attn_thresholds(flash_min_keys_bf16=None, flash_min_keys_fp32=None,
-                        dense_local_max_tokens=None) -> None:
-    """Override the 'auto' dispatch crossovers; None keeps one
+def set_attn_thresholds(flash_min_keys_bf16=None,
+                        flash_min_keys_fp32=None) -> None:
+    """Override the 'auto' flash crossovers; None keeps one
     (aot_tpu/ops/attention.py:87)."""
-    global FLASH_MIN_KEYS_BF16, FLASH_MIN_KEYS, DENSE_LOCAL_MAX_TOKENS
+    global FLASH_MIN_KEYS_BF16, FLASH_MIN_KEYS
     if flash_min_keys_bf16 is not None:
         FLASH_MIN_KEYS_BF16 = int(flash_min_keys_bf16)
     if flash_min_keys_fp32 is not None:
         FLASH_MIN_KEYS = int(flash_min_keys_fp32)
-    if dense_local_max_tokens is not None:
-        DENSE_LOCAL_MAX_TOKENS = int(dense_local_max_tokens)
 
 
 # The csrc/ libraries that a served read of a CUDA tensor can launch, by
@@ -327,18 +314,16 @@ def local_route(tokens: int, device_type: str, dilation: int,
     (aot_tpu/ops/attention.py:323-400 `_use_local_kernel`,
     `local_attention`): 'window' (training on any device, or ATTN_IMPL
     'window': `local_attention_window`), 'plain' (a CPU tensor, or ATTN_IMPL
-    'xla' or 'reference': the kernel's plain version), 'flat' or 'wide'
-    (the CUDA kernel's two wrappers, at dilation 1, split at
-    DENSE_LOCAL_MAX_TOKENS as aot_tpu/ops/attention.py:376-383 splits the
-    TPU kernels; 'auto' and 'pallas'), or 'none' (a card tensor at another
-    dilation: no kernel serves it)."""
+    'xla' or 'reference': the kernel's plain version), 'kernel' (a card
+    tensor at dilation 1 under 'auto' or 'pallas', at any `tokens`: the one
+    CUDA kernel serves every grid that aot_tpu/ops/attention.py:376-383
+    splits between its flat and wide TPU kernels), or 'none' (a card tensor
+    at another dilation: no kernel serves it)."""
     if training or _ATTN_IMPL == "window":
         return "window"
     if device_type == "cpu" or _ATTN_IMPL in ("xla", "reference"):
         return "plain"
-    if dilation != 1:
-        return "none"
-    return "wide" if tokens > DENSE_LOCAL_MAX_TOKENS else "flat"
+    return "kernel" if dilation == 1 else "none"
 
 
 def local_attention_window(
@@ -438,10 +423,9 @@ def local_attention(
     device takes the window form, differentiable by autograd, as the JAX
     package takes its window form there (aot_tpu/ops/attention.py:351-368):
     the CUDA kernel has no backward. Otherwise a CPU tensor takes the
-    kernel's plain version; a CUDA tensor at dilation 1 the kernel, through
-    the flat route's wrapper up to DENSE_LOCAL_MAX_TOKENS query tokens and
-    the wide route's above (ATTN_IMPL 'window', 'xla' and 'reference' move
-    a read to the window form or the plain version). Anything else raises.
+    kernel's plain version; a CUDA tensor at dilation 1 the kernel, at any
+    grid size (ATTN_IMPL 'window', 'xla' and 'reference' move a read to the
+    window form or the plain version). Anything else raises.
     """
     kw = dict(num_heads=num_heads, size_2d=tuple(size_2d), max_dis=max_dis,
               d_att=d_att)
@@ -458,9 +442,6 @@ def local_attention(
     if route == "plain":
         return lwa.local_window_attention_plain(
             q, k, v, rel_bias, rel_v, dilation=dilation, **kw)
-    if route == "wide":
-        return lwa.local_window_attention_wide_cuda(q, k, v, rel_bias, rel_v,
-                                                    **kw)
     return lwa.local_window_attention_cuda(q, k, v, rel_bias, rel_v, **kw)
 
 

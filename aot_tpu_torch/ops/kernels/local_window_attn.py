@@ -1,25 +1,21 @@
 """Local-window attention: the CUDA kernels and their plain PyTorch version.
 
-Two kernels port both TPU kernels of aot_tpu/ops/pallas/local_window_attn.py
-that serve dilation 1: local_window_attention_flat (:475, kernel body
-`_kernel_flat` :414; the grids up to 2,500 query tokens) and
-local_window_attention_wide (:294, `_kernel_wide` :236; the full-resolution
-grids above): csrc/local_window_attn_tc.cu for fp32 q, k, v (3xTF32, the
-launch plan of `launch_plan`) and csrc/local_window_attn_bf16.cu for bf16
-ones (bf16 products; its launch plan is csrc/local_window_attn_bf16_plan.h's,
-read through `bf16_launch_plan`). Each source's header says what bounds it
-on Hopper. ops/attention.py keeps the JAX package's two routes
-(`local_route`), each with its own wrapper and launch count, so a run shows
-which grids went where; both launch the kernel of q's dtype.
+One route ports both TPU kernels of aot_tpu/ops/pallas/local_window_attn.py
+that serve dilation 1, local_window_attention_flat (:475, kernel body
+`_kernel_flat` :414; the JAX package's grids up to 2,500 query tokens) and
+local_window_attention_wide (:294, `_kernel_wide` :236; its grids above):
+the kernel of q's dtype serves every grid size. csrc/local_window_attn_tc.cu
+takes fp32 q, k, v (3xTF32, the launch plan of `launch_plan`) and
+csrc/local_window_attn_bf16.cu bf16 ones (bf16 products; its launch plan is
+csrc/local_window_attn_bf16_plan.h's, read through `bf16_launch_plan`).
+Each source's header says what bounds it on Hopper.
 
   local_window_attention             entry point: a CPU tensor takes the
                                      plain version, a CUDA tensor launches
-                                     the kernel on the flat route or raises
-                                     — there is no fallback
-  local_window_attention_cuda        the flat route's wrapper (counter
+                                     the kernel or raises — there is no
+                                     fallback
+  local_window_attention_cuda        the card's wrapper (counter
                                      launch.local_window_attn[_bf16])
-  local_window_attention_wide_cuda   the wide route's wrapper (counter
-                                     launch.local_window_attn_wide[_bf16])
   local_window_attention_plain       the same function in plain PyTorch:
                                      the win² shifted slices of the
                                      zero-padded image (F.unfold), no
@@ -254,10 +250,22 @@ def _check(fn: str, name: str, t: torch.Tensor, shape, device,
             f"{tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def _launch(fn: str, q, k, v, rel_bias, rel_v, num_heads, size_2d, max_dis,
-            d_att) -> torch.Tensor:
-    """The checks before a launch, and the launch. Raises on anything the
-    kernel does not take, and if the launch fails."""
+def local_window_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_bias: torch.Tensor,
+    rel_v: Optional[torch.Tensor],
+    *,
+    num_heads: int,
+    size_2d: Tuple[int, int],
+    max_dis: int = 7,
+    d_att: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch the CUDA kernel of q's dtype (dilation 1, fp32 or bf16) at
+    any grid size, counted `launch.local_window_attn[_bf16]`. Raises on any
+    input it does not take, and if the launch fails."""
+    fn = "local_window_attention_cuda"
     tensors = (q, k, v, rel_bias, rel_v)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
@@ -302,6 +310,7 @@ def _launch(fn: str, q, k, v, rel_bias, rel_v, num_heads, size_2d, max_dis,
         if err != 0:
             raise RuntimeError(
                 f"local_window_attn_bf16 failed to launch: CUDA error {err}")
+        tracing.count("launch.local_window_attn_bf16")
         return out
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = launch_plan(b, h, hgt, wid, d, dv, max_dis, sms)
@@ -318,50 +327,7 @@ def _launch(fn: str, q, k, v, rel_bias, rel_v, num_heads, size_2d, max_dis,
     if err != 0:
         raise RuntimeError(
             f"{_ENTRY[dt]} failed to launch: CUDA error {err}")
-    return out
-
-
-def local_window_attention_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    rel_bias: torch.Tensor,
-    rel_v: Optional[torch.Tensor],
-    *,
-    num_heads: int,
-    size_2d: Tuple[int, int],
-    max_dis: int = 7,
-    d_att: Optional[int] = None,
-) -> torch.Tensor:
-    """The flat route: launch the CUDA kernel of q's dtype (dilation 1,
-    fp32 or bf16).
-    Raises on any input it does not take, and if the launch fails."""
-    out = _launch("local_window_attention_cuda", q, k, v, rel_bias, rel_v,
-                  num_heads, size_2d, max_dis, d_att)
-    tracing.count("launch.local_window_attn_bf16" if q.dtype == torch.bfloat16
-                  else "launch.local_window_attn")
-    return out
-
-
-def local_window_attention_wide_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    rel_bias: torch.Tensor,
-    rel_v: Optional[torch.Tensor],
-    *,
-    num_heads: int,
-    size_2d: Tuple[int, int],
-    max_dis: int = 7,
-    d_att: Optional[int] = None,
-) -> torch.Tensor:
-    """The wide route: the same kernels, counted apart (dilation 1, fp32
-    or bf16). Raises on any input it does not take, and if the launch fails."""
-    out = _launch("local_window_attention_wide_cuda", q, k, v, rel_bias,
-                  rel_v, num_heads, size_2d, max_dis, d_att)
-    tracing.count("launch.local_window_attn_wide_bf16"
-                  if q.dtype == torch.bfloat16
-                  else "launch.local_window_attn_wide")
+    tracing.count("launch.local_window_attn")
     return out
 
 
@@ -378,7 +344,7 @@ def local_window_attention(
     d_att: Optional[int] = None,
 ) -> torch.Tensor:
     """Dilation-1 local-window attention. A CPU tensor takes the plain
-    version; any other device goes to the flat route's wrapper, which
+    version; any other device goes to `local_window_attention_cuda`, which
     launches the CUDA kernel or raises on what it cannot take."""
     kw = dict(num_heads=num_heads, size_2d=tuple(size_2d), max_dis=max_dis,
               d_att=d_att)

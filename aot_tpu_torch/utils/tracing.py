@@ -16,13 +16,13 @@ Counters always count: plain host-int adds under a name, read as a
 snapshot by `counters`. The names in use:
 
   launch.<kernel>               calls of a CUDA kernel wrapper:
-                                local_window_attn[_wide][_bf16],
+                                local_window_attn[_bf16],
                                 flash_attn_fwd[_bf16], flash_attn_bwd[_bf16],
                                 swin_window_attn
   attn.global.<route>           global reads by route: flash, dense
   attn.global.<route>.keys      the keys those reads covered (the live
                                 length where it is a host int)
-  attn.local.<route>            local reads by route: flat, wide, plain,
+  attn.local.<route>            local reads by route: kernel, plain,
                                 window
   attn.window.<route>           Swin blocks' window attention by route:
                                 kernel, plain

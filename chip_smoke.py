@@ -31,32 +31,32 @@ and the exit code is non-zero:
      process per source, all at once).
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the serving paths give it (max abs error <= 1e-4): the
-     local-window kernel (csrc/local_window_attn_tc.cu) through the flat
-     route's wrapper at the 465x465 grids, Swin-B's 29x29 (464x464; both
-     heads) and the demo's 29x51 (DeAOT's head) and through the wide route's at
-     the full-resolution grids (64x113 and 68x120 with rel_v, 43x76 at B=2,
-     DeAOT's head at 64x113, a 5x3 grid narrower than the window), through
-     both at a window of one slot (max_dis 0), a grid of one row at both
-     heads, max_dis 3 and 5, a 64-column value tile with rel_v, dv=160 with
-     rel_v (two passes), d=512 (two passes, 1-row tiles), d=128 in
-     4-row tiles and the TPU narrow kernel's test shapes (10x12, 9x7,
-     8x8, with and without rel_v), the flash forward at fourteen: DeAOTL's
-     long-term reads (two passes, key splits; SwinB_DeAOTL's, Lq=841 over
-     8,410 and 17,661 keys; one at DAVIS 1080p, Lq=7,232 over 14,464 keys,
-     whose scores take two query slabs), AOT's heads over a long memory
-     and the flash_mem hw_check shape, AOTT's training shape (B=16, h=8,
-     Lq=Lk=900; all keys live and a partial (B,) live length), a
-     near-flat softmax at Lk=19,800 (q scaled by 1e-3: every weight ~1/Lk,
-     where a running fp32 sum over the keys loses most), a one-pass grid
-     that splits its key loop 17 ways (B*h=1, some splits empty) and
+     local-window kernel (csrc/local_window_attn_tc.cu) at the 465x465
+     grids, Swin-B's 29x29 (464x464; both heads), the demo's 29x51 (DeAOT's
+     head), a ragged 46x80 and the full-resolution grids (64x113 and 68x120
+     with rel_v, 43x76 at B=2, DeAOT's head at 64x113, a 5x3 grid narrower
+     than the window), at a window of one slot (max_dis 0), a grid of one
+     row at both heads, max_dis 3 and 5, a 64-column value tile with
+     rel_v, dv=160 with rel_v (two passes), d=512 (two passes, 1-row
+     tiles), d=128 in 4-row tiles and the TPU narrow kernel's test shapes
+     (10x12, 9x7, 8x8, with and without rel_v), the flash forward at
+     fourteen: DeAOTL's long-term reads (two passes, key splits;
+     SwinB_DeAOTL's, Lq=841 over 8,410 and 17,661 keys; one at DAVIS
+     1080p, Lq=7,232 over 14,464 keys, whose scores take two query slabs),
+     AOT's heads over a long memory and the flash_mem hw_check shape,
+     AOTT's training shape (B=16, h=8, Lq=Lk=900; all keys live and a
+     partial (B,) live length), a near-flat softmax at Lk=19,800 (q scaled
+     by 1e-3: every weight ~1/Lk, where a running fp32 sum over the keys
+     loses most), a one-pass grid that splits its key loop 17 ways (B*h=1,
+     some splits empty) and
      d=dv=64 (the one-pass kernel's 128-column value tile).
   3. kernel and plain times (CUDA events around one call, median of
      2 x 50 runs, in the order plain, kernels, kernels reversed,
-     plain; 2 x 20 at 64x113 and at 1080p): the local-window kernel through
-     its route's wrapper at 30x30, 29x29 and 64x113 (AOT and DeAOT heads), at
-     DeAOT's head beside F.scaled_dot_product_attention with the dense
-     window bias (rel_bias in the window, -inf elsewhere; no PyTorch call
-     adds AOT's rel_v), the flash forward at AOTT's training shape and at
+     plain; 2 x 20 at 64x113 and at 1080p): the local-window kernel at
+     30x30, 29x29 and 64x113 (AOT and DeAOT heads), at DeAOT's head
+     beside F.scaled_dot_product_attention with the dense window bias
+     (rel_bias in the window, -inf elsewhere; no PyTorch call adds AOT's
+     rel_v), the flash forward at AOTT's training shape and at
      DeAOTL's long-term shape with 9,000 and 19,800 keys, SwinB_DeAOTL's
      (Lq=841, 17,661 keys) and at 1080p
      (Lq=7,232, 14,464 keys), each beside F.scaled_dot_product_attention
@@ -119,10 +119,10 @@ and the exit code is non-zero:
      `python -m aot_tpu_torch.eval`'s own code (eval.__main__.run) with
      `--dataset davis2017 --max_resolution 1080 --ckpt_path test --set
      TEST_DATASET_FULL_RESOLUTION=True`, AOTT: the input is 1009x1793, a
-     64x113 = 7,232-token grid (asserted), so every short-term read takes
-     the wide route. Launches asserted: the wide route once per LSTT
+     64x113 = 7,232-token grid (asserted), each short-term read on the
+     local kernel. Launches asserted: the local kernel once per LSTT
      forward (each frame, the reference frame included, per block), the
-     flat route 0, the flash forward once per LT read of >= 8,192 live
+     flash forward once per LT read of >= 8,192 live
      keys (the LT schedule gives 0 here: AOTT's LT gap 9999 keeps one
      7,232-token frame). Prints the median and p90 ms/frame of the
      evaluator's per-frame times after EVAL_WARMUP, the peak memory, and
@@ -157,7 +157,7 @@ and the exit code is non-zero:
      within 1e-2; the plain versions widen to fp32, the flash one rounds P
      to bf16), a second run bit-identical: the local-window kernel at the
      AOT and DeAOT heads at 30x30 with B = 1 and 4 and DeAOT's at the
-     demo's 29x51 (flat route), both at 64x113 (wide route), the flash
+     demo's 29x51, both at 64x113, the flash
      forward over AOTT-shaped LT rings (Lq=900, Lk=7,200, h=8, d=32, live
      900 to 7,200), DeAOTL's (Lq=900, Lk=19,800, d=128, dv=1024) with B =
      1 and 4, the demo's (Lq=1,479, Lk=5,916, live 4,437 and 5,916) and
@@ -174,7 +174,7 @@ and the exit code is non-zero:
      same clip, ms/frame (median, p90) beside this call's fp32 runs, masks
      against the fp32 runs' (mean >= 99.5%, worst frame >= 99.0%),
      launches from the bf16 rule (flash from 4,096 live keys: DeAOTL from
-     step 21); phase 12's clip with --amp (the wide route's bf16
+     step 21); phase 12's clip with --amp (the local kernel's bf16
      instantiation); each of the 14 variants as 18, at bf16.
  21. batched multi-video serving (VOSInferEngine.step_videos): AOTT with
      N = 1, 2, 4, 8 and DeAOTL with N = 1, 2, 4 (55 steps, through the
@@ -252,7 +252,7 @@ and the exit code is non-zero:
      the config's ATTN_IMPL, applied by build_infer_engine): AOTT at
      465x465, the reference frame and KNOB_STEPS steps under each of
      'auto', 'reference' and 'pallas'; launches asserted as the modes
-     route them: 'auto' the flat local kernel on every LSTT forward and no
+     route them: 'auto' the local kernel on every LSTT forward and no
      flash launch (900 LT keys), 'reference' no kernel launch at all,
      'pallas' the local kernel as 'auto' and the flash forward on both
      global reads of every forward (the self-attention and the LT read,
@@ -267,7 +267,7 @@ and the exit code is non-zero:
      (phases 2 and 19 hold #1 and #1b at its 29x51 grid and #5b at its LT
      reads, Lq 1,479 over a 5,916-key ring with 4,437 and 5,916 keys
      live). Each run's launches asserted from the LT schedule (fp32: the
-     flat local kernel on every LSTT forward, no flash launch below 8,192
+     local kernel on every LSTT forward, no flash launch below 8,192
      live keys; --amp: the bf16 local kernel, and the bf16 flash forward
      on every LT read of >= 4,096 live keys), one PNG and one MJPG video
      frame a frame, ms/frame and FPS by the demo's own clock; the chunked
@@ -360,16 +360,12 @@ BATCH_TOL = 1e-4      # phase 21: a batch row's logits vs the video alone
 
 # kernel name -> (the launch counter its wrapper counts, utils/tracing.py
 # `launch.<name>`; the TPU kernel it replaces; its source csrc/<source>.cu).
-# The two local-window entries are the two routes of ops.attention.
-# local_route (flat up to 2,500 query tokens, wide above), each with its own
-# wrapper and count; both launch the one kernel of local_window_attn_tc.cu.
+# The local-window kernel serves every dilation-1 grid: it replaces both TPU
+# kernels that the JAX package splits at 2,500 query tokens.
 KERNELS = {
     "local_window_attn": ("launch.local_window_attn",
-                          "aot_tpu/ops/pallas/local_window_attn.py:414",
+                          "aot_tpu/ops/pallas/local_window_attn.py:414, :236",
                           "local_window_attn_tc"),
-    "local_window_attn_wide": ("launch.local_window_attn_wide",
-                               "aot_tpu/ops/pallas/local_window_attn.py:236",
-                               "local_window_attn_tc"),
     "flash_attn_fwd": ("launch.flash_attn_fwd",
                        "aot_tpu/ops/pallas/flash_attn_vjp.py:51",
                        "flash_attn_fwd"),
@@ -378,12 +374,8 @@ KERNELS = {
                        "flash_attn_bwd"),
     # the bf16 instantiations (bf16 serving), each with its own count
     "local_window_attn_bf16": ("launch.local_window_attn_bf16",
-                               "aot_tpu/ops/pallas/local_window_attn.py:414",
-                               "local_window_attn_bf16"),
-    "local_window_attn_wide_bf16": (
-        "launch.local_window_attn_wide_bf16",
-        "aot_tpu/ops/pallas/local_window_attn.py:236",
-        "local_window_attn_bf16"),
+                               "aot_tpu/ops/pallas/local_window_attn.py:414, "
+                               ":236", "local_window_attn_bf16"),
     "flash_attn_fwd_bf16": ("launch.flash_attn_fwd_bf16",
                             "aot_tpu/ops/pallas/flash_attn_vjp.py:51",
                             "flash_attn_fwd_bf16"),
@@ -400,16 +392,14 @@ KERNELS = {
 
 
 def expected_launches(kernels, frames: int, flash_reads: int, layers: int,
-                      bf16: bool = False, wide: bool = False,
-                      window_blocks: int = 0):
+                      bf16: bool = False, window_blocks: int = 0):
     """Launches by kernel name of `frames` LSTT forwards (one local read a
-    block each, on the wide or the flat route) with `flash_reads` LT reads
-    on the flash kernel, at fp32 or bf16, and of as many encoder passes
-    with `window_blocks` Swin blocks (the window kernel at fp32 only)."""
+    block each) with `flash_reads` LT reads on the flash kernel, at fp32 or
+    bf16, and of as many encoder passes with `window_blocks` Swin blocks
+    (the window kernel at fp32 only)."""
     want = {name: 0 for name in kernels}
     sfx = "_bf16" if bf16 else ""
-    want[("local_window_attn_wide" if wide else "local_window_attn")
-         + sfx] = frames * layers
+    want["local_window_attn" + sfx] = frames * layers
     want["flash_attn_fwd" + sfx] = flash_reads * layers
     if not bf16:
         want["swin_window_attn"] = frames * window_blocks
@@ -528,71 +518,64 @@ def check_kernel_numerics(lwa, fa, device):
 
 
 def check_local_numerics(lwa, device, rng):
-    """Phase 2's local-window cases, through each route's wrapper (both
-    launch csrc/local_window_attn_tc.cu). Returns the worst error by route
-    name."""
-    # name, B, H, W, heads, d, dv, rel_v, max_dis, routes
-    flat, wide, both = ("flat",), ("wide",), ("flat", "wide")
+    """Phase 2's local-window cases (csrc/local_window_attn_tc.cu). Returns
+    the worst error by kernel name."""
+    # name, B, H, W, heads, d, dv, rel_v, max_dis
     local_cases = [
-        ("aott_st_b1", 1, 30, 30, 8, 32, 32, True, 7, flat),
-        ("aott_st_b2", 2, 30, 30, 8, 32, 32, True, 7, flat),
-        ("deaot_st_dv512", 1, 30, 30, 1, 128, 512, False, 7, flat),
-        ("deaot_st", 1, 30, 30, 1, 128, 1024, False, 7, flat),
+        ("aott_st_b1", 1, 30, 30, 8, 32, 32, True, 7),
+        ("aott_st_b2", 2, 30, 30, 8, 32, 32, True, 7),
+        ("deaot_st_dv512", 1, 30, 30, 1, 128, 512, False, 7),
+        ("deaot_st", 1, 30, 30, 1, 128, 1024, False, 7),
         # Swin-B's 464x464 grid: 29 is no multiple of the 16-pixel row
-        ("swinb_aot_st_29x29", 1, 29, 29, 8, 32, 32, True, 7, flat),
-        ("swinb_deaot_st_29x29", 1, 29, 29, 1, 128, 1024, False, 7, flat),
+        ("swinb_aot_st_29x29", 1, 29, 29, 8, 32, 32, True, 7),
+        ("swinb_deaot_st_29x29", 1, 29, 29, 1, 128, 1024, False, 7),
         # the demo's 449x801 input at --max_resolution 480 (phase 32)
-        ("deaot_demo_29x51", 1, 29, 51, 1, 128, 1024, False, 7, flat),
-        ("aott_ragged_46x80", 1, 46, 80, 8, 32, 32, True, 7, both),
-        ("aott_davis_1080p", 1, 64, 113, 8, 32, 32, True, 7, wide),
-        ("aott_68x120", 1, 68, 120, 8, 32, 32, True, 7, wide),
-        ("aott_720p_b2", 2, 43, 76, 8, 32, 32, True, 7, wide),
-        ("deaot_davis_1080p", 1, 64, 113, 1, 128, 1024, False, 7, wide),
-        ("aott_narrower_than_window", 1, 5, 3, 8, 32, 32, True, 7, wide),
+        ("deaot_demo_29x51", 1, 29, 51, 1, 128, 1024, False, 7),
+        ("aott_ragged_46x80", 1, 46, 80, 8, 32, 32, True, 7),
+        ("aott_davis_1080p", 1, 64, 113, 8, 32, 32, True, 7),
+        ("aott_68x120", 1, 68, 120, 8, 32, 32, True, 7),
+        ("aott_720p_b2", 2, 43, 76, 8, 32, 32, True, 7),
+        ("deaot_davis_1080p", 1, 64, 113, 1, 128, 1024, False, 7),
+        ("aott_narrower_than_window", 1, 5, 3, 8, 32, 32, True, 7),
         # a window of one slot; a grid of one row (a 1-row tile, the other
         # halo rows off the image) at both heads; other radii and widths:
         # a 64-column value tile with rel_v in two chunks (one pass),
         # dv = 160 with rel_v (two passes, a partial second value tile),
         # d = 512 (two passes: q/k channels above 128, 1-row score tiles)
         # and d = 128 in 4-row one-pass tiles (the largest one-pass block)
-        ("aott_max_dis0", 1, 30, 30, 8, 32, 32, True, 0, both),
-        ("aott_one_row", 1, 1, 40, 8, 32, 32, True, 7, both),
-        ("deaot_one_row", 1, 1, 40, 1, 128, 1024, False, 7, both),
-        ("aott_max_dis3_17x23", 1, 17, 23, 8, 32, 32, True, 3, both),
-        ("d64_dv64_rel_v", 1, 20, 37, 4, 64, 64, True, 5, both),
-        ("d32_dv160_rel_v", 2, 19, 21, 2, 32, 160, True, 7, both),
-        ("d512_two_passes", 1, 9, 21, 2, 512, 64, True, 7, both),
-        ("d128_dv32_4_row_tiles", 1, 64, 113, 2, 128, 32, True, 7, wide),
+        ("aott_max_dis0", 1, 30, 30, 8, 32, 32, True, 0),
+        ("aott_one_row", 1, 1, 40, 8, 32, 32, True, 7),
+        ("deaot_one_row", 1, 1, 40, 1, 128, 1024, False, 7),
+        ("aott_max_dis3_17x23", 1, 17, 23, 8, 32, 32, True, 3),
+        ("d64_dv64_rel_v", 1, 20, 37, 4, 64, 64, True, 5),
+        ("d32_dv160_rel_v", 2, 19, 21, 2, 32, 160, True, 7),
+        ("d512_two_passes", 1, 9, 21, 2, 512, 64, True, 7),
+        ("d128_dv32_4_row_tiles", 1, 64, 113, 2, 128, 32, True, 7),
     ]
     # the TPU narrow kernel's test shapes (tests/test_local_window_kernel.py)
     for hgt, wid in ((10, 12), (9, 7), (8, 8)):
         for rv in (True, False):
             local_cases.append((f"narrow_{hgt}x{wid}", 2, hgt, wid, 2, 8, 8,
-                                rv, 2, both))
-    fns = {"flat": ("local_window_attn", lwa.local_window_attention_cuda),
-           "wide": ("local_window_attn_wide",
-                    lwa.local_window_attention_wide_cuda)}
-    worst = {"local_window_attn": 0.0, "local_window_attn_wide": 0.0}
+                                rv, 2))
+    worst = 0.0
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for name, b, hgt, wid, h, d, dv, rv, m, which in local_cases:
+    for name, b, hgt, wid, h, d, dv, rv, m in local_cases:
         args = local_inputs(rng, b, hgt, wid, h, d, dv, rv, m, device)
         kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=m, d_att=d)
         want = lwa.local_window_attention_plain(*args, **kw)
         plan = lwa.launch_plan(b, h, hgt, wid, d, dv, m, sms)
-        for kind in which:
-            kname, fn = fns[kind]
-            got = fn(*args, **kw)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            print(f"phase 2: {kname} {name} B={b} {hgt}x{wid} h={h} d={d} "
-                  f"dv={dv} rel_v={rv} max_dis={m} (passes {plan.passes}, "
-                  f"rows {plan.rows}, blocks {plan.blocks}): max_abs_err "
-                  f"{err:.3e}", flush=True)
-            if not err <= KERNEL_TOL:
-                raise AssertionError(
-                    f"{kname} {name}: kernel vs plain {err} > {KERNEL_TOL}")
-            worst[kname] = max(worst[kname], err)
-    return worst
+        got = lwa.local_window_attention_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print(f"phase 2: local_window_attn {name} B={b} {hgt}x{wid} h={h} "
+              f"d={d} dv={dv} rel_v={rv} max_dis={m} (passes {plan.passes}, "
+              f"rows {plan.rows}, blocks {plan.blocks}): max_abs_err "
+              f"{err:.3e}", flush=True)
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"local_window_attn {name}: kernel vs plain "
+                                 f"{err} > {KERNEL_TOL}")
+        worst = max(worst, err)
+    return {"local_window_attn": worst}
 
 
 def fwd_plan(fa, b, lq, lk, h, dv, device):
@@ -819,9 +802,8 @@ def dense_window_bias(rel_bias, hgt, wid, max_dis):
 
 
 def time_local(lwa, device, card: str, rng):
-    """Phase 3's local-window timings at the serving shapes, each through
-    its route's wrapper (flat up to 2,500 query tokens, wide above), beside
-    the plain version; at DeAOT's head (no rel_v) also beside
+    """Phase 3's local-window timings at the serving shapes, beside the
+    plain version; at DeAOT's head (no rel_v) also beside
     F.scaled_dot_product_attention with the dense window bias (the library
     yardstick, its backend and its error against plain printed). Returns
     {label: (kernel ms, plain ms, library ms or None, (bound ms, by))}."""
@@ -837,12 +819,8 @@ def time_local(lwa, device, card: str, rng):
             ("DeAOT DAVIS 1080p ST", 64, 113, 1, 128, 1024, False)):
         args = local_inputs(rng, 1, hgt, wid, h, d, dv, rv, 7, device)
         kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=7, d_att=d)
-        wide = hgt * wid > 2500
-        route = "wide" if wide else "flat"
-        kernel = (lwa.local_window_attention_wide_cuda if wide
-                  else lwa.local_window_attention_cuda)
         fns = {"plain": lambda: lwa.local_window_attention_plain(*args, **kw),
-               "kernel": lambda: kernel(*args, **kw)}
+               "kernel": lambda: lwa.local_window_attention_cuda(*args, **kw)}
         lib_note = ""
         if not rv:
             q, k, v, rel_bias, _ = args
@@ -852,7 +830,7 @@ def time_local(lwa, device, card: str, rng):
             bias = dense_window_bias(rel_bias, hgt, wid, 7)
             fns["library"] = lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=bias)
-        t = time_fns(fns, *((20, 3) if wide else ()))
+        t = time_fns(fns, *((20, 3) if (hgt, wid) == EVAL_GRID else ()))
         if "library" in fns:
             lib_err = (fns["library"]().transpose(1, 2).reshape(
                 1, hgt * wid, h * dv) - fns["plain"]()).abs().max().item()
@@ -865,13 +843,13 @@ def time_local(lwa, device, card: str, rng):
                                torch.cuda.get_device_properties(
                                    device).multi_processor_count)
         print(f"phase 3: local window {label} {hgt}x{wid} h={h} d={d} "
-              f"dv={dv} B=1 ({route} route; passes {plan.passes}, rows "
+              f"dv={dv} B=1 (passes {plan.passes}, rows "
               f"{plan.rows}, blocks {plan.blocks}): kernel {t['kernel']:.4f} "
               f"ms, plain {t['plain']:.4f} ms{lib_note}; bound {b_ms:.4f} ms "
               f"({b_by}) ({card})", flush=True)
         out[label] = (t["kernel"], t["plain"], t.get("library"), (b_ms, b_by))
     # the TPU narrow kernel's test shapes (row #3 of PERF.md's table: the
-    # kernel that closes it, on the flat route)
+    # kernel that closes it)
     for hgt, wid in ((10, 12), (9, 7), (8, 8)):
         args = local_inputs(rng, 2, hgt, wid, 2, 8, 8, True, 2, device)
         kw = dict(num_heads=2, size_2d=(hgt, wid), max_dis=2, d_att=8)
@@ -889,16 +867,14 @@ def time_local(lwa, device, card: str, rng):
 def time_kernels(lwa, fa, device, card: str):
     """Phase 3. Returns {name: (kernel ms, plain ms, library ms or None,
     (bound ms, what bounds it))}
-    at the shapes the JSON line reports: the flat route at AOTT's 465x465
-    ST shape, the wide route at AOTT's DAVIS 1080p ST shape (no PyTorch
-    call adds rel_v: no library time), the flash forward at DeAOTL's longest
-    LT read."""
+    at the shapes the JSON line reports: the local kernel at AOTT's 465x465
+    ST shape (no PyTorch call adds rel_v: no library time), the flash
+    forward at DeAOTL's longest LT read."""
     import torch.nn.functional as F
 
     rng = np.random.RandomState(SEED + 1)
     local = time_local(lwa, device, card, rng)
-    times = {"local_window_attn": local["AOTT 465x465 ST"],
-             "local_window_attn_wide": local["AOTT DAVIS 1080p ST"]}
+    times = {"local_window_attn": local["AOTT 465x465 ST"]}
     # the forward at AOTT's training shape, at DeAOTL's LT reads at 465x465
     # (the JSON line's row: Lk = 19,800) and at DAVIS 1080p (two slabs)
     for label, b, lq, lk, h, d, dv in (
@@ -2358,7 +2334,7 @@ def run_full_res_eval(kernels, device, card: str):
                                  eng.engine.max_mem_len_ratio)
         shadow.update(t)
     want = expected_launches(kernels, EVAL_FRAMES, flash_reads,
-                             cfg.MODEL_LSTT_NUM, wide=True)
+                             cfg.MODEL_LSTT_NUM)
     print(f"phase 12: kernel launches in the evaluation: {launches} "
           f"(expected: {want}; LT frames at the end {shadow.count}, "
           f"{shadow.count * hw} live keys)", flush=True)
@@ -2737,9 +2713,9 @@ def profile_bwd(card: str, runs: int = 5) -> int:
 
 def profile_fwd(card: str, runs: int = 5) -> int:
     """--profile-fwd: where the bf16 forward kernels' time goes, kernel by
-    kernel: the local-window kernel at BF16_LOCAL_SHAPES through its
-    route's wrapper, the flash forward at BF16_FLASH_SHAPES (profile_calls
-    each), then the build's ptxas lines of the sources they loaded. It
+    kernel: the local-window kernel at BF16_LOCAL_SHAPES, the flash
+    forward at BF16_FLASH_SHAPES (profile_calls each), then the build's
+    ptxas lines of the sources they loaded. It
     drives the wrappers only, so it also times an earlier tree's kernels
     (this file run from that tree's root)."""
     from aot_tpu_torch.ops.kernels import _build
@@ -2751,10 +2727,9 @@ def profile_fwd(card: str, runs: int = 5) -> int:
     for label, b, hgt, wid, h, d, dv, rv in BF16_LOCAL_SHAPES:
         args, _ = bf16_local_case(rng, b, hgt, wid, h, d, dv, rv, device)
         kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=7, d_att=d)
-        kernel = (lwa.local_window_attention_wide_cuda if hgt * wid > 2500
-                  else lwa.local_window_attention_cuda)
         profile_calls("profile-fwd", f"local {label} B={b} h={h} d={d} "
-                      f"dv={dv} rel_v={rv}", lambda: kernel(*args, **kw),
+                      f"dv={dv} rel_v={rv}",
+                      lambda: lwa.local_window_attention_cuda(*args, **kw),
                       runs, card)
     for label, b, lq, lk, h, d, dv, valid in BF16_FLASH_SHAPES:
         q, k, v, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid, device)
@@ -2923,19 +2898,17 @@ def video_frames(path: str) -> int:
 def demo_expected_launches(kernels, cfg, bf16: bool):
     """Launches by kernel name of the demo over DEMO_SEQS at DEMO_SIZE: a
     local read a block for every LSTT forward (each frame, the reference
-    frame's included) on the flat route, and the flash forward for every
+    frame's included) on the local kernel, and the flash forward for every
     LT read of enough live keys. The demo never grows its LT ring, so the
     live keys stop at TEST_LONG_TERM_MEM_CAP frames. Returns (launches,
     the grid's tokens, the live LT keys at each sequence's end)."""
     from aot_tpu_torch.data.video_aug import restrict_size
     from aot_tpu_torch.engine.infer import LTShadow
-    from aot_tpu_torch.ops.attention import DENSE_LOCAL_MAX_TOKENS, use_flash
+    from aot_tpu_torch.ops.attention import use_flash
 
     hgt, wid = restrict_size(*DEMO_SIZE, 1.0, None, 480 * 800 / 480,
                              cfg.MODEL_ALIGN_CORNERS)
     hw = ((hgt - 1) // 16 + 1) * ((wid - 1) // 16 + 1)
-    if hw > DENSE_LOCAL_MAX_TOKENS:
-        raise AssertionError(f"phase 32: {hw} tokens take the wide route")
     cap = cfg.TEST_LONG_TERM_MEM_CAP
     dtype = torch.bfloat16 if bf16 else torch.float32
     frames = flash_reads = 0
@@ -3189,9 +3162,8 @@ def run_entry_points(kernels, device, card: str):
 
 # phase 19's and --profile-fwd's shapes of the bf16 forward kernels: the
 # local-window kernel at the AOT head (h=8, d=dv=32, rel_v) and DeAOT's
-# (h=1, d=128, dv=1024) at 30x30 with B = 1 and 4 (flat route; B = 4 is
-# `--video_batch 4` serving), at the demo's 29x51 (phase 32's --amp run)
-# and at 64x113 (wide route)
+# (h=1, d=128, dv=1024) at 30x30 with B = 1 and 4 (B = 4 is `--video_batch
+# 4` serving), at the demo's 29x51 (phase 32's --amp run) and at 64x113
 BF16_LOCAL_SHAPES = (("AOT head 30x30", 1, 30, 30, 8, 32, 32, True),
                      ("AOT head 30x30", 4, 30, 30, 8, 32, 32, True),
                      ("DeAOT head 30x30", 1, 30, 30, 1, 128, 1024, False),
@@ -3244,17 +3216,12 @@ def check_bf16_kernels(lwa, fa, device, card: str):
     import torch.nn.functional as F
 
     rng = np.random.RandomState(SEED + 3)
-    worst = {"local_window_attn_bf16": 0.0, "local_window_attn_wide_bf16": 0.0,
-             "flash_attn_fwd_bf16": 0.0}
+    worst = {"local_window_attn_bf16": 0.0, "flash_attn_fwd_bf16": 0.0}
     times = {}
     for label, b, hgt, wid, h, d, dv, rv in BF16_LOCAL_SHAPES:
         args, f32 = bf16_local_case(rng, b, hgt, wid, h, d, dv, rv, device)
         kw = dict(num_heads=h, size_2d=(hgt, wid), max_dis=7, d_att=d)
-        wide = hgt * wid > 2500
-        kname = "local_window_attn_wide_bf16" if wide else \
-            "local_window_attn_bf16"
-        kernel = (lwa.local_window_attention_wide_cuda if wide
-                  else lwa.local_window_attention_cuda)
+        kernel = lwa.local_window_attention_cuda
         want = lwa.local_window_attention_plain(*args, **kw)
         got = kernel(*args, **kw)
         again = kernel(*args, **kw)
@@ -3266,7 +3233,8 @@ def check_bf16_kernels(lwa, fa, device, card: str):
         if not torch.equal(got, again):
             raise AssertionError(f"phase 19 local {label} B={b}: two runs "
                                  "differ")
-        worst[kname] = max(worst[kname], err)
+        worst["local_window_attn_bf16"] = max(
+            worst["local_window_attn_bf16"], err)
         e32 = (kernel(*f32, **kw) - lwa.local_window_attention_plain(
             *f32, **kw)).abs().max().item()
         if not e32 <= KERNEL_TOL:
@@ -3284,7 +3252,8 @@ def check_bf16_kernels(lwa, fa, device, card: str):
             fns["library"] = lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=bias)
             lib_backend = sdpa_backend(qs, ks, vs, bias)
-        t = time_fns(fns, *((20, 3) if wide or b > 1 else ()))
+        t = time_fns(fns, *((20, 3) if (hgt, wid) == EVAL_GRID or b > 1
+                            else ()))
         if not rv:
             lib = (f", bf16 F.scaled_dot_product_attention with the dense "
                    f"window bias ({lib_backend}) {t['library']:.4f} ms")
@@ -3294,18 +3263,19 @@ def check_bf16_kernels(lwa, fa, device, card: str):
                                     fa.sm_count(device))
         rows, vt, blocks = (lwa.bf16_plan_value(plan, n) for n in
                             ("ROWS", "VALUE_TILE", "BLOCKS"))
-        print(f"phase 19: {kname} {label} B={b} h={h} d={d} dv={dv} rel_v={rv}"
-              f" (rows {rows}, value tile {vt}, {blocks} blocks): error "
-              f"{err:.3e} of the largest entry (gate {BF16_TOL}), a second "
-              f"run bit-identical; kernel {t['kernel']:.4f} ms, bf16 plain "
+        print(f"phase 19: local_window_attn_bf16 {label} B={b} h={h} d={d} "
+              f"dv={dv} rel_v={rv} (rows {rows}, value tile {vt}, {blocks} "
+              f"blocks): error {err:.3e} of the largest entry (gate "
+              f"{BF16_TOL}), a second run bit-identical; kernel "
+              f"{t['kernel']:.4f} ms, bf16 plain "
               f"{t['plain']:.4f} ms{lib}; bound {b_ms:.4f} ms ({b_by}); the "
               f"fp32 kernel {t['fp32 kernel']:.4f} ms (max_abs_err "
               f"{e32:.2e}, fp32 bound "
               f"{local_bound(b, hgt, wid, h, d, dv, rv)[0]:.4f} ms) ({card})",
               flush=True)
-        if b == 1 and h == 8:     # the JSON line's shapes: AOTT's ST reads
-            times[kname] = (t["kernel"], t["plain"], t.get("library"),
-                            (b_ms, b_by))
+        if (b, h, hgt, wid) == (1, 8, 30, 30):   # the JSON line's shape
+            times["local_window_attn_bf16"] = (
+                t["kernel"], t["plain"], t.get("library"), (b_ms, b_by))
     for label, b, lq, lk, h, d, dv, valid in BF16_FLASH_SHAPES:
         q32, k32, v32, vl = flash_inputs(rng, b, lq, lk, h, d, dv, valid,
                                          device)
@@ -3434,7 +3404,7 @@ def run_bf16_serving(kernels, device, card: str, video, mask, fp32):
 
 
 def run_full_res_eval_bf16(kernels, device, card: str):
-    """Phase 20: phase 12's clip evaluated with --amp: the wide route's bf16
+    """Phase 20: phase 12's clip evaluated with --amp: the local kernel's bf16
     instantiation at 64x113, and the LT read of its one 7,232-key frame on
     the flash kernel at every step (the bf16 rule: from 4,096 live keys).
     Returns the launches by kernel name."""
@@ -3458,7 +3428,7 @@ def run_full_res_eval_bf16(kernels, device, card: str):
                                  eng.engine.max_mem_len_ratio, torch.bfloat16)
         shadow.update(t)
     want = expected_launches(kernels, EVAL_FRAMES, flash_reads,
-                             ev.cfg.MODEL_LSTT_NUM, bf16=True, wide=True)
+                             ev.cfg.MODEL_LSTT_NUM, bf16=True)
     ms = np.asarray(stats["frame_times"][EVAL_WARMUP:]) * 1e3
     print(f"phase 20: AOTT DAVIS-2017 Full-Resolution evaluation with --amp "
           f"(bf16), grid {grid[0]}x{grid[1]}: median "

@@ -6,10 +6,11 @@
   with `jax.default_backend` reporting "tpu" (a CPU tensor against JAX's
   CPU backend for the modes that route alike there), and its local routes
   are read off stand-ins for the functions `local_attention` calls.
-- Each ATTN_* threshold key through `build_infer_engine`, and each
-  AOT_TPU_* environment variable at import (in a subprocess), moves the
-  port's switch; `--set ATTN_IMPL=reference` on the eval CLI reaches the
-  engine.
+- Each ATTN_FLASH_MIN_KEYS_* threshold key through `build_infer_engine`,
+  and each AOT_TPU_* environment variable at import (in a subprocess),
+  moves the port's switch; the config key of aot_tpu's crossover between
+  its two local kernels moves nothing (the port has one);
+  `--set ATTN_IMPL=reference` on the eval CLI reaches the engine.
 - The training CLI's `config_overrides` equal tools/train.py's for the same
   argv, read off tools/train.py's own main with its config builder and
   Trainer stubbed.
@@ -40,8 +41,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _restore_knobs():
     """Both packages' modes and thresholds back to their defaults after
     each test."""
-    saved = (att.FLASH_MIN_KEYS_BF16, att.FLASH_MIN_KEYS,
-             att.DENSE_LOCAL_MAX_TOKENS)
+    saved = (att.FLASH_MIN_KEYS_BF16, att.FLASH_MIN_KEYS)
     jsaved = (jatt._FLASH_MIN_KEYS_BF16, jatt._FLASH_MIN_KEYS_FP32,
               jatt._DENSE_LOCAL_MAX_TOKENS)
     torch.set_num_threads(1)
@@ -129,22 +129,22 @@ def _jax_local_route(monkeypatch, size, dilation, training):
     return called[0]
 
 
-def _kernel_of(route: str) -> str:
-    """A route by the kernel it launches ('none' for every plain form)."""
-    return route if route in ("flat", "wide") else "none"
-
-
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("size", [(30, 30), (64, 113)])
 @pytest.mark.parametrize("training", [False, True])
 def test_local_route_as_aot_tpu(impl, size, training, jax_on, monkeypatch):
-    """A card tensor at dilation 1 against the TPU: the same kernel (or
-    none), and the window form wherever ATTN_IMPL 'window' asks for it."""
+    """A card tensor at dilation 1 against the TPU: the port's one kernel
+    wherever aot_tpu takes its flat or its wide kernel, and no kernel where
+    aot_tpu takes none; the window form wherever ATTN_IMPL 'window' asks
+    for it."""
     att.set_attn_impl(impl)
     jax_on(impl, "tpu")
     want = _jax_local_route(monkeypatch, size, 1, training)
     got = att.local_route(size[0] * size[1], "cuda", 1, training)
-    assert _kernel_of(got) == _kernel_of(want), (impl, size, training)
+    if want in ("flat", "wide"):
+        assert got == "kernel", (impl, size, training, want)
+    else:
+        assert got in ("window", "plain"), (impl, size, training, want)
     if impl == "window" or training:
         assert got == "window" and want in ("window", "plain")
     if impl in ("xla", "reference") and not training:
@@ -152,10 +152,11 @@ def test_local_route_as_aot_tpu(impl, size, training, jax_on, monkeypatch):
 
 
 def test_local_route_thresholds_and_the_cpu():
-    att.set_attn_thresholds(dense_local_max_tokens=500)
-    assert att.local_route(900, "cuda", 1, False) == "wide"
-    att.set_attn_thresholds(dense_local_max_tokens=1000)
-    assert att.local_route(900, "cuda", 1, False) == "flat"
+    """Every dilation-1 card read takes the one kernel, on either side of
+    aot_tpu's 2,500-token crossover: a 30x30 grid and DAVIS 1080p's
+    64x113."""
+    for tokens in (900, 7232):
+        assert att.local_route(tokens, "cuda", 1, False) == "kernel"
     for impl in IMPLS:
         att.set_attn_impl(impl)
         assert att.local_route(900, "cpu", 1, False) == (
@@ -175,13 +176,13 @@ def test_build_infer_engine_applies_the_config(tmp_path):
                        ATTN_DENSE_LOCAL_MAX_TOKENS=400)
     build_infer_engine(None, cfg)
     assert att.attn_impl() == "pallas"
-    assert (att.FLASH_MIN_KEYS, att.FLASH_MIN_KEYS_BF16,
-            att.DENSE_LOCAL_MAX_TOKENS) == (100, 50, 400)
+    assert (att.FLASH_MIN_KEYS, att.FLASH_MIN_KEYS_BF16) == (100, 50)
     att.set_attn_impl("auto")
     assert att.use_flash(100, 100, -1, -1.0)
     assert not att.use_flash(99, 99, -1, -1.0)
     assert att.use_flash(50, 50, -1, -1.0, torch.bfloat16)
-    assert att.local_route(401, "cuda", 1, False) == "wide"
+    # aot_tpu's local crossover is its own: the port keeps one kernel
+    assert att.local_route(401, "cuda", 1, False) == "kernel"
     # None keeps a threshold; the mode goes back to the config's
     build_infer_engine(None, build_config(stage="pre_ytb_dav", model="aott",
                                           DIR_ROOT=str(tmp_path)))
@@ -190,18 +191,15 @@ def test_build_infer_engine_applies_the_config(tmp_path):
 
 def test_environment_variables_set_the_defaults():
     env = dict(os.environ, AOT_TPU_FLASH_MIN_KEYS_BF16="123",
-               AOT_TPU_FLASH_MIN_KEYS_FP32="456",
-               AOT_TPU_DENSE_LOCAL_MAX_TOKENS="789", OMP_NUM_THREADS="1")
+               AOT_TPU_FLASH_MIN_KEYS_FP32="456", OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-c",
          "import aot_tpu_torch.ops.attention as a; print(a.FLASH_MIN_KEYS_BF16,"
-         " a.FLASH_MIN_KEYS, a.DENSE_LOCAL_MAX_TOKENS, a.use_flash(456, 456,"
-         " -1, -1.0), a.use_flash(455, 455, -1, -1.0), a.local_route(790,"
-         " 'cuda', 1, False))"],
+         " a.FLASH_MIN_KEYS, a.use_flash(456, 456, -1, -1.0),"
+         " a.use_flash(455, 455, -1, -1.0))"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
         check=True)
-    assert out.stdout.split() == ["123", "456", "789", "True", "False",
-                                  "wide"]
+    assert out.stdout.split() == ["123", "456", "True", "False"]
 
 
 def test_eval_cli_set_reaches_the_engine(tmp_path, monkeypatch):

@@ -220,10 +220,10 @@ def test_cli_overrides_match_tools_eval(argv):
 
 def test_cli_grid_at_davis_full_resolution():
     """--max_resolution 1080 with TEST_DATASET_FULL_RESOLUTION: a 1080x1920
-    frame is snapped to 1009x1793, a 64x113 = 7,232-token grid, above the
-    wide kernel's threshold."""
+    frame is snapped to 1009x1793, a 64x113 = 7,232-token grid, above
+    aot_tpu's threshold for its wide kernel."""
+    from aot_tpu.ops.attention import _DENSE_LOCAL_MAX_TOKENS
     from aot_tpu_torch.data.video_aug import restrict_size
-    from aot_tpu_torch.ops.attention import DENSE_LOCAL_MAX_TOKENS
 
     args = cli.build_parser().parse_args(
         ["--dataset", "davis2017", "--max_resolution", "1080",
@@ -235,4 +235,4 @@ def test_cli_grid_at_davis_full_resolution():
                              cfg.TEST_MAX_LONG_EDGE, cfg.MODEL_ALIGN_CORNERS)
     assert (hgt, wid) == (1009, 1793)
     grid = ((hgt - 1) // 16 + 1, (wid - 1) // 16 + 1)
-    assert grid == (64, 113) and grid[0] * grid[1] > DENSE_LOCAL_MAX_TOKENS
+    assert grid == (64, 113) and grid[0] * grid[1] > _DENSE_LOCAL_MAX_TOKENS

@@ -128,12 +128,12 @@ def test_plain_matches_wide_and_narrow_kernels(hgt, wid, rq, with_rv, head):
 
 
 def test_plain_matches_jax_dispatch_above_the_threshold():
-    """52x52 = 2,704 query tokens, above DENSE_LOCAL_MAX_TOKENS: the JAX
-    dispatch takes its banded form on the CPU (the wide kernel on a TPU),
-    the port its plain version on the CPU (the wide kernel on the card)."""
+    """52x52 = 2,704 query tokens, above aot_tpu's _DENSE_LOCAL_MAX_TOKENS:
+    the JAX dispatch takes its banded form on the CPU (the wide kernel on a
+    TPU), the port its plain version on the CPU (its one kernel on the
+    card)."""
     hgt = wid = 52
-    assert hgt * wid > att.DENSE_LOCAL_MAX_TOKENS
-    assert jax_att._DENSE_LOCAL_MAX_TOKENS == att.DENSE_LOCAL_MAX_TOKENS
+    assert hgt * wid > jax_att._DENSE_LOCAL_MAX_TOKENS
     args = _mk(1, hgt, wid, 2, 8, 8, 7, True, seed=5)
     j, t = _both(args)
     kw = dict(num_heads=2, size_2d=(hgt, wid), max_dis=7, d_att=8)
@@ -146,18 +146,50 @@ def test_plain_matches_jax_dispatch_above_the_threshold():
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 @pytest.mark.parametrize("tokens", [2500, 2501])
 def test_route(tokens, device, training):
-    """The JAX rule (aot_tpu/ops/attention.py:351-383): above 2,500 query
-    tokens at dilation 1 a card tensor takes the wide kernel, at or below
-    it the flat one; training on any device the window form; any other CPU
-    tensor the plain version; a card tensor at another dilation has no
-    kernel."""
+    """The JAX rule (aot_tpu/ops/attention.py:351-383) with its two TPU
+    kernels read as the port's one: at dilation 1 a card tensor takes the
+    kernel on either side of aot_tpu's 2,500-token crossover; training on
+    any device the window form; any other CPU tensor the plain version; a
+    card tensor at another dilation has no kernel."""
     route = att.local_route(tokens, device, 1, training)
     if training:
         assert route == "window"
     elif device == "cpu":
         assert route == "plain"
     else:
-        assert route == ("wide" if tokens > 2500 else "flat")
+        assert route == "kernel"
     want_dil2 = ("window" if training else "plain" if device == "cpu"
                  else "none")
     assert att.local_route(tokens, device, 2, training) == want_dil2
+
+
+@pytest.mark.parametrize("hgt,wid", [(31, 54), (30, 53), (64, 113), (50, 50),
+                                     (41, 61)])
+def test_every_card_read_takes_the_one_kernel(hgt, wid, monkeypatch):
+    """Under a card route forced on CPU tensors, a counting stand-in for
+    the kernel's wrapper sees every dilation-1 read: the benchmark cells'
+    grids (31x54, 30x53, DAVIS 1080p's 64x113) and 2,500 and 2,501 tokens
+    on either side of aot_tpu's crossover, each counted once as
+    `attn.local.kernel` and once as `launch.local_window_attn`."""
+    route = att.local_route
+    seen = []
+
+    def stand_in(*args, **kw):
+        seen.append(kw["size_2d"])
+        tracing.count("launch.local_window_attn")
+        return lwa.local_window_attention_plain(*args, **kw)
+
+    monkeypatch.setattr(att, "local_route",
+                        lambda tokens, _, dilation, training: route(
+                            tokens, "cuda", dilation, training))
+    monkeypatch.setattr(lwa, "local_window_attention_cuda", stand_in)
+    _, t = _both(_mk(1, hgt, wid, 1, 4, 4, 7, True, seed=hgt * wid))
+    kw = dict(num_heads=1, size_2d=(hgt, wid), max_dis=7, d_att=4)
+    tracing.reset_counters()
+    got = att.local_attention(*t, **kw)
+    reads = {k: v for k, v in tracing.counters().items()
+             if k.startswith(("attn.local.", "launch."))}
+    assert seen == [(hgt, wid)]
+    assert reads == {"attn.local.kernel": 1, "launch.local_window_attn": 1}
+    torch.testing.assert_close(
+        got, lwa.local_window_attention_plain(*t, **kw), rtol=0, atol=0)

@@ -19,6 +19,9 @@ frames) and at 464x464, shifted and unshifted, one and two images:
 card need not have; this file imports none of it.)
 """
 
+import functools
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -175,6 +178,37 @@ def test_load_serving_kernels(dtype, swin_enc, impl, monkeypatch):
     else:
         want = ["local_window_attn_bf16", "flash_attn_fwd_bf16"]
     assert list(got) == built == loaded == want
+
+
+@pytest.mark.parametrize("encoder", ["mobilenetv2", "swinb"])
+def test_build_infer_engine_asks_the_model_for_swin_reads(encoder,
+                                                          monkeypatch):
+    """The model says whether its encoder makes Swin window reads, and
+    build_infer_engine hands that answer to load_serving_kernels (a
+    recording stand-in here) for a model on a card (its parameters a
+    stand-in that reports a CUDA tensor). Swin at small widths."""
+    from aot_tpu_torch.configs import build_config
+    from aot_tpu_torch.engine import infer
+    from aot_tpu_torch.models import encoders
+    from aot_tpu_torch.models.aot import AOT
+
+    monkeypatch.setattr(encoders, "SwinTransformer", functools.partial(
+        swin.SwinTransformer, embed_dim=32, depths=(2, 2, 2),
+        num_heads=(1, 2, 4), full_depths=(2, 2, 2, 2)))
+    is_swin = encoder == "swinb"
+    dims = (32, 64, 128, 128) if is_swin else (24, 32, 96, 1280)
+    model = AOT(encoder_name=encoder, encoder_dims=dims, emb_dim=32,
+                self_heads=2, att_heads=2).eval()
+    assert isinstance(model.encoder, swin.SwinTransformer) == is_swin
+    assert model.swin_window_reads == is_swin
+    calls = []
+    monkeypatch.setattr(infer, "load_serving_kernels",
+                        lambda dtype, swin: calls.append((dtype, swin)))
+    monkeypatch.setattr(model, "parameters", lambda: iter(
+        [types.SimpleNamespace(is_cuda=True)]))
+    infer.build_infer_engine(model, build_config(stage="pre_ytb_dav",
+                                                 model="aott"))
+    assert calls == [(torch.float32, is_swin)]
 
 
 @pytest.mark.parametrize("mode", ["eval", "grad", "training", "bf16"])
